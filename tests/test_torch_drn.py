@@ -1,0 +1,88 @@
+"""The port's DRN (spalign_tpu_torch/models/drn.py) and the flax -> torch
+weight bridge (spalign_tpu_torch/convert/from_jax.py).
+
+Tolerance: stage outputs within 1e-4 of the largest |value| in float32
+on the CPU, the converter's bar (reference convert_pth2ch.py:57-73)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from spalign_tpu.models.drn import DRN_FACTORIES as FLAX_DRN
+from spalign_tpu.models.drn import preprocess_imagenet as flax_preprocess
+from spalign_tpu_torch.convert.from_jax import drn_state_dict_from_flax
+from spalign_tpu_torch.models.drn import DRN_FACTORIES, preprocess_imagenet
+
+torch.set_num_threads(2)
+
+
+def _flax_variables(name, hw, seed=1):
+    model = FLAX_DRN[name](out_map=True, out_middle=True)
+    variables = jax.device_get(model.init(
+        jax.random.key(seed), jnp.zeros((1, *hw, 3), jnp.float32)))
+    # non-trivial BN statistics so the bridge of every leaf is exercised
+    rng = np.random.RandomState(seed)
+    stats = jax.tree.map(
+        lambda a: (np.asarray(a) + rng.uniform(0.05, 0.2, np.shape(a))
+                   ).astype(np.float32), variables["batch_stats"])
+    return model, {"params": variables["params"], "batch_stats": stats}
+
+
+@pytest.mark.parametrize("name", ["drn_c_26", "drn_d_22"])
+def test_stage_outputs_match_flax(name):
+    hw = (64, 64)
+    model, variables = _flax_variables(name, hw)
+    x = np.random.RandomState(0).rand(2, *hw, 3).astype(np.float32) * 255
+    out_f, maps_f = model.apply(variables, flax_preprocess(jnp.asarray(x)),
+                                train=False)
+    port = DRN_FACTORIES[name](device="cpu")
+    port.load_state_dict(drn_state_dict_from_flax(variables,
+                                                  arch=name[4].upper()),
+                         strict=True)
+    with torch.no_grad():
+        out_t, maps_t = port(preprocess_imagenet(torch.from_numpy(x)))
+    assert len(maps_t) == len(maps_f) == 8
+    for mf, mt in zip(maps_f, maps_t):
+        mf = np.asarray(mf)
+        assert mt.shape == mf.shape
+        assert np.abs(mt.numpy() - mf).max() <= 1e-4 * np.abs(mf).max()
+    out_f = np.asarray(out_f)
+    assert np.abs(out_t.numpy() - out_f).max() <= 1e-4 * np.abs(out_f).max()
+    # the label path's entry: maps[7] only, head skipped
+    with torch.no_grad():
+        feats = port.features(preprocess_imagenet(torch.from_numpy(x)))
+    np.testing.assert_array_equal(feats.numpy(), maps_t[7].numpy())
+    assert feats.shape == (2, 8, 8, 512)
+
+
+def test_bridge_covers_every_parameter():
+    _, variables = _flax_variables("drn_c_26", (64, 64))
+    sd = drn_state_dict_from_flax(variables)
+    port = DRN_FACTORIES["drn_c_26"](device="cpu")
+    assert set(sd) == set(port.state_dict())
+    for k, v in port.state_dict().items():
+        assert tuple(sd[k].shape) == tuple(v.shape), k
+    n_flax = sum(np.size(a) for a in jax.tree.leaves(variables))
+    n_port = sum(v.numel() for k, v in sd.items()
+                 if not k.endswith("num_batches_tracked"))
+    assert n_flax == n_port
+
+
+def test_preprocess_matches_flax():
+    x = np.random.RandomState(2).randint(0, 256, (2, 5, 7, 3)).astype(
+        np.uint8)
+    np.testing.assert_allclose(
+        preprocess_imagenet(torch.from_numpy(x)).numpy(),
+        np.asarray(flax_preprocess(jnp.asarray(x))), rtol=1e-6, atol=1e-6)
+
+
+def test_random_init_is_seeded():
+    a = DRN_FACTORIES["drn_c_26"](device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+    b = DRN_FACTORIES["drn_c_26"](device="cpu",
+                                  generator=torch.Generator().manual_seed(3))
+    for (ka, va), (kb, vb) in zip(a.state_dict().items(),
+                                  b.state_dict().items()):
+        assert ka == kb and torch.equal(va, vb)

@@ -1,0 +1,74 @@
+"""Rules of the port: spalign_tpu_torch/ and chip_smoke.py import no JAX,
+flax, cv2 or spalign_tpu, and the entry points default to CUDA and
+raise without it instead of falling back to the CPU."""
+
+import ast
+import inspect
+import pathlib
+
+import pytest
+import torch
+
+from spalign_tpu_torch import config
+from spalign_tpu_torch.kernels.slic import slic
+from spalign_tpu_torch.models.drn import DRN_FACTORIES
+from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "spalign_tpu")
+PORT_FILES = sorted((ROOT / "spalign_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value)
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    assert path.exists(), path
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_the_scan_sees_the_whole_package():
+    names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    assert {"spalign_tpu_torch/kernels/slic_fused.py",
+            "spalign_tpu_torch/pipeline/label_gen.py",
+            "chip_smoke.py"} <= names
+
+
+def _default(fn, name="device"):
+    return inspect.signature(fn).parameters[name].default
+
+
+def test_entry_points_default_to_cuda():
+    assert _default(SpalignLabelGenerator.__init__) == "cuda"
+    assert _default(slic) == "cuda"
+    for factory in DRN_FACTORIES.values():
+        assert _default(factory) == "cuda"
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    sp = config.SuperpixelConfig(method="slic",
+                                 slic_enforce_connectivity=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SpalignLabelGenerator(config.LabelGenConfig(superpixel=sp))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        slic(torch.zeros((1, 8, 8, 3)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DRN_FACTORIES["drn_c_26"]()
