@@ -1,4 +1,4 @@
-"""Typed configuration of the label-generation path.
+"""Typed configuration of the label-generation and training paths.
 
 The port's own copy of the dataclasses of ``spalign_tpu/config.py``
 (same fields, defaults and validation), so that neither package imports
@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -141,6 +141,33 @@ class LabelGenConfig:
                 raise ValueError(
                     f"slic_device_downscale={d} must divide "
                     f"resize_shape={self.resize_shape}")
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """SegNet training config (reference train_segnet.py:41-94)."""
+
+    model: str = "basic"  # 'basic' | 'normal'
+    n_class: int = 2
+    batchsize: int = 8  # GLOBAL batch (reference: per-rank 1 x 8 ranks)
+    lr: float = 0.01
+    decay_iteration: int = 300  # lr *= 0.1 every N iters (MomentumSGD only)
+    weight_decay: float = 0.0005
+    train_iters: int = 2000
+    optimizer: str = "Adam"  # 'Adam' | 'MomentumSGD'
+    input_shape: Tuple[int, int] = (512, 1024)
+    eval_shape: Tuple[int, int] = (1024, 2048)
+    augment: bool = False  # PCA lighting + horizontal flip
+    log_interval: int = 50
+    val_interval: int = 100
+    loss: str = "ce"  # 'ce' | 'soft' | 'mse'
+    n_use_data: Optional[int] = None
+    seed: int = 0
+    result_dir: str = "results/train"
+    resume: Optional[str] = None
+    # data-parallel ranks; the port trains on one card (None or 1)
+    num_devices: Optional[int] = None
+    compute_dtype: str = "float32"
 
 
 def flatten(cfg, prefix: str = "") -> dict:

@@ -1,4 +1,4 @@
-"""Flax DRN variables -> the port's DRN state_dict.
+"""Flax DRN and SegNet variables -> the port's state_dicts.
 
 The inverse of ``spalign_tpu/convert/pth_to_jax.py::convert_drn_state_dict``:
 conv kernels HWIO -> OIHW, BatchNorm ``scale``/``bias`` (params) and
@@ -70,8 +70,43 @@ def drn_state_dict_from_flax(variables, arch: str = "C"
             else:
                 raise ValueError(f"unexpected flax leaf {collection}/"
                                  f"{'/'.join(path)}")
-            out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
-            if key.endswith(".running_var"):
-                out[key[:-len("running_var")] + "num_batches_tracked"] = (
-                    torch.tensor(0, dtype=torch.int64))
+            _put(out, key, v)
+    return out
+
+
+def _put(out: dict, key: str, v: np.ndarray):
+    out[key] = torch.from_numpy(np.array(v, dtype=np.float32))
+    if key.endswith(".running_var"):
+        out[key[:-len("running_var")] + "num_batches_tracked"] = (
+            torch.tensor(0, dtype=torch.int64))
+
+
+_SEGNET_TOP = {"basic": re.compile(r"conv(_decode)?[1-4](_bn)?|conv_classifier"),
+               "normal": re.compile(r"(up_)?block[1-5]|score")}
+
+
+def segnet_state_dict_from_flax(variables, model: str = "basic"
+                                ) -> Dict[str, torch.Tensor]:
+    """{'params': ..., 'batch_stats': ...} of the flax SegNetBasic
+    ('basic') or SegNet ('normal') -> state_dict of the port's module
+    (``models/segnet.py``, whose module names are the flax paths joined
+    with '.').  Kernels HWIO -> OIHW; BN scale/bias/mean/var ->
+    weight/bias/running_mean/running_var; conv biases stay biases."""
+    if model not in _SEGNET_TOP:
+        raise ValueError(f"unknown model {model!r}")
+    out: Dict[str, torch.Tensor] = {}
+    for collection in ("params", "batch_stats"):
+        for path, v in _walk(variables.get(collection, {})):
+            if not _SEGNET_TOP[model].fullmatch(path[0]):
+                raise ValueError(f"unexpected flax path {'/'.join(path)} "
+                                 f"for model={model!r}")
+            name, leaf = ".".join(path[:-1]), path[-1]
+            if leaf == "kernel":
+                key, v = f"{name}.weight", v.transpose(3, 2, 0, 1)
+            elif (collection, leaf) in _BN_LEAVES:
+                key = f"{name}.{_BN_LEAVES[(collection, leaf)]}"
+            else:
+                raise ValueError(f"unexpected flax leaf {collection}/"
+                                 f"{'/'.join(path)}")
+            _put(out, key, v)
     return out

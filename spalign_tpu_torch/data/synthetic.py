@@ -195,11 +195,19 @@ class SyntheticRoadScenes:
         return np.stack(imgs), np.stack(labels)
 
 
+def _bicubic(img: np.ndarray, out_hw) -> torch.Tensor:
+    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)
+    y = F.interpolate(x[None].to(torch.float32), size=tuple(out_hw),
+                      mode="bicubic", align_corners=False)
+    return y[0].permute(1, 2, 0)
+
+
 def resize_bicubic_u8(img: np.ndarray, out_hw) -> np.ndarray:
     """(H, W, 3) uint8 -> (h, w, 3) uint8 bicubic resize on the CPU."""
-    x = torch.from_numpy(np.ascontiguousarray(img)).permute(2, 0, 1)
-    x = x[None].to(torch.float32)
-    y = F.interpolate(x, size=tuple(out_hw), mode="bicubic",
-                      align_corners=False)
-    y = y[0].permute(1, 2, 0).round().clamp(0, 255).to(torch.uint8)
-    return y.numpy()
+    return _bicubic(img, out_hw).round().clamp(0, 255).to(torch.uint8).numpy()
+
+
+def resize_bicubic_f32(img: np.ndarray, out_hw) -> np.ndarray:
+    """(H, W, C) -> (h, w, C) float32 bicubic resize on the CPU, neither
+    rounded nor clamped (cv2.INTER_CUBIC on float images)."""
+    return np.ascontiguousarray(_bicubic(img, out_hw).numpy())

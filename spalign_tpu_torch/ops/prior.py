@@ -14,9 +14,10 @@ from spalign_tpu_torch.ops.segments import segment_mean
 
 def pixel_prior(h: int, w: int, y_rel_pos: float = 0.75,
                 x_rel_pos: float = 0.5, y_rel_sigma: float = 0.1,
-                x_rel_sigma: float = 0.1, device="cpu") -> torch.Tensor:
-    """(h, w) float32 per-pixel prior, with the integer truncation of the
-    mean position (reference :116-122)."""
+                x_rel_sigma: float = 0.1, *, device) -> torch.Tensor:
+    """(h, w) float32 per-pixel prior on ``device`` (no default: the
+    caller names it), with the integer truncation of the mean position
+    (reference :116-122)."""
     ycoord = torch.arange(h, dtype=torch.float32, device=device)[:, None]
     xcoord = torch.arange(w, dtype=torch.float32, device=device)[None, :]
     ymean = float(int(h * y_rel_pos))

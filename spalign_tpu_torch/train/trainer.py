@@ -1,0 +1,195 @@
+"""SegNet trainer on one card (counterpart of ``spalign_tpu/train/trainer.py``).
+
+The train step is eager PyTorch: forward in train mode (batch statistics,
+running averages updated), the loss, backward, the optimizer.  The loss
+and gradient norm stay on the device; the host reads them only at
+``log_interval``.  One card only: the JAX package's data-parallel mesh
+(global-batch BN across chips) becomes DDP with SyncBatchNorm in a later
+slice (ROADMAP queue 1, item 13).
+
+Optimizers match the reference recipes (train_segnet.py:230-240, 260-263):
+Adam (the README recipe; chainer's and optax's defaults, lr 1e-3) or
+MomentumSGD(lr, momentum=0.9) with coupled weight decay and x0.1 every
+``decay_iteration`` updates (optax's staircase: update k, counted from 0,
+runs at lr * 0.1 ** (k // decay_iteration)).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from dataclasses import asdict
+from typing import Iterable
+
+import torch
+
+from spalign_tpu_torch.config import TrainConfig
+from spalign_tpu_torch.models.segnet import build_segnet
+from spalign_tpu_torch.train.losses import get_loss_fn
+from spalign_tpu_torch.utils.device import resolve_device
+
+_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def build_model(cfg: TrainConfig, device="cuda") -> torch.nn.Module:
+    """cfg.model's SegNet with random weights from cfg.seed.
+    compute_dtype='bfloat16' runs convs and BN in bfloat16 with float32
+    parameters (flax mixed precision)."""
+    return build_segnet(cfg.model, cfg.n_class, _DTYPES[cfg.compute_dtype],
+                        device=device,
+                        generator=torch.Generator().manual_seed(cfg.seed))
+
+
+def lr_at(cfg: TrainConfig, update: int) -> float:
+    """Learning rate of update ``update`` (counted from 0)."""
+    if cfg.optimizer == "Adam":
+        return 1e-3
+    if cfg.decay_iteration > 0:
+        return cfg.lr * 0.1 ** (update // cfg.decay_iteration)
+    return cfg.lr
+
+
+def make_optimizer(cfg: TrainConfig, params):
+    """(optimizer, lr scheduler or None) of the reference recipes."""
+    params = list(params)
+    if cfg.optimizer == "Adam":
+        return torch.optim.Adam(params, lr=1e-3, betas=(0.9, 0.999),
+                                eps=1e-8), None
+    if cfg.optimizer == "MomentumSGD":
+        # chainer WeightDecay hook: grad += wd * param (coupled L2)
+        opt = torch.optim.SGD(params, lr=cfg.lr, momentum=0.9,
+                              weight_decay=cfg.weight_decay)
+        sched = torch.optim.lr_scheduler.LambdaLR(
+            opt, lambda k: lr_at(cfg, k) / cfg.lr)
+        return opt, sched
+    raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
+
+
+class Trainer:
+    """Training loop with the reference's observability surface: JSONL
+    log (LogReport), stdout rows (PrintReport), snapshots every
+    val_interval, evaluation, args.txt provenance
+    (train_segnet.py:253-303).
+
+    Args:
+      cfg: TrainConfig.
+      model: a SegNet module (default: ``build_model(cfg, device)``).
+      device: 'cuda' (default; raises without CUDA) or 'cpu'.
+    """
+
+    def __init__(self, cfg: TrainConfig, model=None, device="cuda"):
+        if cfg.num_devices not in (None, 1):
+            raise NotImplementedError(
+                f"num_devices={cfg.num_devices}: the port trains on one "
+                "card; data-parallel training (DDP with SyncBatchNorm) is "
+                "ROADMAP queue 1, item 13")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # stated, not inherited: float32 convolutions run in full
+            # float32 (cuDNN would otherwise use TF32)
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        self.model = (build_model(cfg, self.device) if model is None
+                      else model.to(self.device))
+        self.model.train()
+        self.optimizer, self.scheduler = make_optimizer(
+            cfg, self.model.parameters())
+        self.loss_fn = get_loss_fn(cfg.loss)
+        self.step = 0
+        os.makedirs(cfg.result_dir, exist_ok=True)
+        with open(os.path.join(cfg.result_dir, "args.txt"), "w") as f:
+            json.dump(asdict(cfg), f, indent=4, sort_keys=True, default=str)
+        self._log_path = os.path.join(cfg.result_dir, "log")
+        self._log: list = []
+        self._t0 = time.time()
+
+    def to_device(self, images, labels):
+        """Host batch (numpy or tensors) -> device tensors."""
+        return (torch.as_tensor(images, dtype=torch.float32,
+                                device=self.device),
+                torch.as_tensor(labels, device=self.device))
+
+    def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> dict:
+        """One update on a device batch; returns device scalars
+        {'loss', 'grad_norm'} without reading them."""
+        self.model.train()
+        loss = self.loss_fn(self.model(images), labels)
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        grads = [p.grad for p in self.model.parameters()
+                 if p.grad is not None]
+        grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
+                                   for g in grads))
+        self.optimizer.step()
+        if self.scheduler is not None:
+            self.scheduler.step()
+        self.step += 1
+        return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    def state_dict(self) -> dict:
+        return {"step": self.step, "model": self.model.state_dict(),
+                "optimizer": self.optimizer.state_dict(),
+                "scheduler": (None if self.scheduler is None
+                              else self.scheduler.state_dict())}
+
+    def load_state_dict(self, state: dict):
+        """Resume from a snapshot (``checkpoints.load_snapshot``)."""
+        self.model.load_state_dict(state["model"])
+        self.optimizer.load_state_dict(state["optimizer"])
+        if self.scheduler is not None and state.get("scheduler"):
+            self.scheduler.load_state_dict(state["scheduler"])
+        self.step = int(state["step"])
+
+    def fit(self, train_iter: Iterable, evaluator=None,
+            checkpointer=None):
+        """Train until cfg.train_iters.  ``train_iter`` yields (images
+        (B, H, W, 3) float32, labels) host arrays; ``evaluator(model)``
+        returns a metrics dict; ``checkpointer(step, state_dict)``."""
+        cfg = self.cfg
+        fit_t0, fit_step0 = time.time(), self.step
+        for images, labels in train_iter:
+            if self.step >= cfg.train_iters:
+                break
+            metrics = self.train_step(*self.to_device(images, labels))
+            step = self.step
+            if step % cfg.log_interval == 0 or step == cfg.train_iters:
+                # ProgressBar analog (train_segnet.py:290): rate since
+                # fit start + ETA
+                loss = float(metrics["loss"])
+                rate = (step - fit_step0) / max(time.time() - fit_t0, 1e-9)
+                self._report({
+                    "iteration": step, "main/loss": loss,
+                    "grad_norm": float(metrics["grad_norm"]),
+                    "lr": lr_at(cfg, step),
+                    "elapsed_time": time.time() - self._t0,
+                    "iters_per_sec": rate,
+                    "eta_seconds": max(cfg.train_iters - step, 0)
+                    / max(rate, 1e-9),
+                    "progress": step / max(cfg.train_iters, 1)})
+            if step % cfg.val_interval == 0 or step == cfg.train_iters:
+                if evaluator is not None:
+                    ev = evaluator(self.model)
+                    self._report({"iteration": step,
+                                  **{f"val/{k}": v for k, v in ev.items()}})
+                if checkpointer is not None:
+                    checkpointer(step, self.state_dict())
+                self._flush_log()
+        self._flush_log()
+        return self
+
+    def _report(self, rec: dict):
+        """Stream a JSONL line (log.jsonl) and a stdout row; the
+        reference-format ``log`` JSON array is rewritten at eval points
+        and at the end of fit."""
+        self._log.append(rec)
+        with open(self._log_path + ".jsonl", "a") as f:
+            f.write(json.dumps(rec) + "\n")
+        print(" ".join(f"{k}={v:.6g}" if isinstance(v, float) else
+                       f"{k}={v}" for k, v in rec.items()))
+
+    def _flush_log(self):
+        """Chainer-LogReport-format dump (one JSON array named ``log``)."""
+        with open(self._log_path, "w") as f:
+            json.dump(self._log, f, indent=2)

@@ -142,9 +142,15 @@ def test_superpixel_prior_matches_jax():
         jnp.asarray(s), S + 1)) for s in sps])
     got = tprior.superpixel_prior(torch.from_numpy(sps), S + 1).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
-    np.testing.assert_allclose(tprior.pixel_prior(40, 48).numpy(),
+    np.testing.assert_allclose(tprior.pixel_prior(40, 48,
+                                                  device="cpu").numpy(),
                                np.asarray(jprior.pixel_prior(40, 48)),
                                rtol=1e-6, atol=0)
+
+
+def test_pixel_prior_names_its_device():
+    with pytest.raises(TypeError):
+        tprior.pixel_prior(40, 48)
 
 
 def _kmeans_inputs(seed, n=120, d=12, spread=1.2):

@@ -1,18 +1,22 @@
-"""The CUDA kernel against its plain version, on the card.
+"""The CUDA kernels against their plain versions, on the card.
 
 These tests need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
-elsewhere; ``python -m pytest -m cuda tests/test_torch_cuda.py`` runs
-them on the card.  Tolerance: labels equal bit for bit (the kernel and
-its plain version do the same integer sums and the same float32
-operations in the same order)."""
+elsewhere; ``python -m pytest -m cuda --noconftest
+tests/test_torch_cuda.py`` runs them on the card.  Tolerance: none.
+SLIC labels are equal bit for bit (the kernel and its plain version do
+the same integer sums and the same float32 operations in the same
+order); pooled values, codes and gradients are equal bit for bit (each
+is one input element selected by a compare, or zero)."""
 
 import numpy as np
 import pytest
 import torch
 
+from spalign_tpu_torch.kernels import pooling as tpk
 from spalign_tpu_torch.kernels import slic as tslic
 from spalign_tpu_torch.kernels.slic_fused import (slic_lloyd,
                                                   slic_lloyd_reference)
+from spalign_tpu_torch.ops.pooling import max_pool_argmax_2x2, max_unpool_2x2
 
 pytestmark = pytest.mark.cuda
 
@@ -64,3 +68,89 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     out = slic_lloyd(lab, c0, **kw)
     assert out.shape == (1, 32 * 32) and out.min() >= 0
     assert np.all(out.cpu().numpy() < c0.shape[1])
+
+
+# ---- the SegNet pooling kernels (csrc/pooling.cu) ----
+
+
+def _pool_input(dev, shape, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(shape, generator=g, device=dev)
+    x[x.abs() < 0.4] = 0.0  # ties, as after relu
+    return x.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 64, 128, 64), (2, 16, 32, 512),
+                                   (3, 10, 14, 64), (1, 6, 10, 3)],
+                         ids=["c64", "c512", "ragged_w", "scalar_c3"])
+def test_pooling_kernels_equal_plain_versions(cuda, shape, dtype):
+    x = _pool_input(cuda, shape, dtype)
+    before = (tpk.pool2x2.launches, tpk.scatter2x2.launches,
+              tpk.gather2x2.launches)
+    pooled, codes = tpk.pool2x2(x)
+    p_ref, c_ref = tpk.pool2x2_reference(x)
+    y = _pool_input(cuda, pooled.shape, dtype, seed=1)
+    up = tpk.scatter2x2(y, codes)
+    g = _pool_input(cuda, shape, dtype, seed=2)
+    down = tpk.gather2x2(g, codes)
+    torch.cuda.synchronize()
+    assert (tpk.pool2x2.launches, tpk.scatter2x2.launches,
+            tpk.gather2x2.launches) == tuple(b + 1 for b in before)
+    assert torch.equal(pooled, p_ref) and torch.equal(codes, c_ref)
+    assert torch.equal(up, tpk.scatter2x2_reference(y, codes))
+    assert torch.equal(down, tpk.gather2x2_reference(g, codes))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_odd_input_through_the_ops_layer(cuda, dtype):
+    """Odd H and W: the -inf pad in the ops layer, then the kernels;
+    values and gradients equal the plain CPU path's."""
+    x = _pool_input(cuda, (2, 9, 13, 64), dtype)
+    w = _pool_input(cuda, (2, 9, 13, 64), dtype, seed=3)
+    outs = []
+    for t in (x, x.cpu()):
+        t = t.clone().requires_grad_(True)
+        pooled, codes = max_pool_argmax_2x2(t)
+        up = max_unpool_2x2(pooled * 2, codes, out_hw=(9, 13))
+        (up * w.to(t.device)).sum().backward()
+        outs.append((pooled, codes, up, t.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a.detach().cpu(), b.detach())
+
+
+def test_pooling_never_takes_the_plain_path(cuda, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    for name in ("pool2x2_reference", "scatter2x2_reference",
+                 "gather2x2_reference"):
+        monkeypatch.setattr(tpk, name, boom)
+    import spalign_tpu_torch.ops.pooling as ops_pooling
+
+    monkeypatch.setattr(ops_pooling, "pool2x2_reference", boom)
+    monkeypatch.setattr(ops_pooling, "scatter2x2_reference", boom)
+    x = _pool_input(cuda, (2, 8, 12, 64), torch.float32).requires_grad_(True)
+    pooled, codes = max_pool_argmax_2x2(x)
+    max_unpool_2x2(pooled, codes).sum().backward()
+    assert x.grad.shape == x.shape
+
+
+def test_segnet_basic_train_step_launch_counts(cuda, tmp_path):
+    """One SegNetBasic train step: 4 pools, 8 scatters (4 unpools
+    forward, 4 pool backwards), 4 gathers (4 unpool backwards)."""
+    from spalign_tpu_torch.config import TrainConfig
+    from spalign_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(TrainConfig(batchsize=2, input_shape=(64, 128),
+                             result_dir=str(tmp_path)))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    images = torch.randn((2, 64, 128, 3), generator=g, device=cuda)
+    labels = (torch.rand((2, 64, 128), generator=g, device=cuda)
+              > 0.5).to(torch.int32)
+    tpk.reset_launches()
+    loss = tr.train_step(images, labels)["loss"]
+    torch.cuda.synchronize()
+    assert torch.isfinite(loss)
+    assert (tpk.pool2x2.launches, tpk.scatter2x2.launches,
+            tpk.gather2x2.launches) == (4, 8, 4)

@@ -12,7 +12,10 @@ import torch
 from spalign_tpu_torch import config
 from spalign_tpu_torch.kernels.slic import slic
 from spalign_tpu_torch.models.drn import DRN_FACTORIES
+from spalign_tpu_torch.models.segnet import build_segnet
 from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+from spalign_tpu_torch.train.evaluator import Evaluator
+from spalign_tpu_torch.train.trainer import Trainer, build_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "spalign_tpu")
@@ -47,7 +50,9 @@ def test_no_forbidden_imports(path):
 def test_the_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"spalign_tpu_torch/kernels/slic_fused.py",
+            "spalign_tpu_torch/kernels/pooling.py",
             "spalign_tpu_torch/pipeline/label_gen.py",
+            "spalign_tpu_torch/train/trainer.py",
             "chip_smoke.py"} <= names
 
 
@@ -60,9 +65,12 @@ def test_entry_points_default_to_cuda():
     assert _default(slic) == "cuda"
     for factory in DRN_FACTORIES.values():
         assert _default(factory) == "cuda"
+    for entry in (Trainer.__init__, Evaluator.__init__, build_segnet,
+                  build_model):
+        assert _default(entry) == "cuda"
 
 
-def test_entry_points_raise_without_cuda(monkeypatch):
+def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     sp = config.SuperpixelConfig(method="slic",
                                  slic_enforce_connectivity=False)
@@ -72,3 +80,9 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         slic(torch.zeros((1, 8, 8, 3)))
     with pytest.raises(RuntimeError, match="CUDA"):
         DRN_FACTORIES["drn_c_26"]()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(config.TrainConfig(result_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Evaluator(None, list, (8, 8))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_segnet("basic")
