@@ -19,6 +19,15 @@ Run from the root of the repository on a machine with one CUDA GPU and
                truth: a warm-up unit, then 3 timed units; every count set
                to 0 just before and read just after; the kernel must have
                launched, no road mask may be empty, no feature NaN
+  slic_assign  the SLIC assignment kernel (csrc/slic_assign.cu) against its
+               plain version at the overlaps path's inputs (30 frames at
+               1024x2048, K = 98) with the grid centres and with the centres
+               after 3 sweeps, at K = 990 on 2 frames, on a ragged H*W and
+               with every window empty: labels bit-equal; kernel, plain, bound
+               and the two centre-update reductions timed; the whole
+               per-sweep SLIC split into its launches and updates; at
+               30 x 512x1024 the per-sweep engine against the Lloyd kernel
+               (labels equal) and both times
   features     bf16 against float32 DRN features (reported, not gated)
   pooling      the pool, scatter and gather kernels against their plain
                versions at the train step's four level shapes (B = 8,
@@ -38,6 +47,17 @@ Run from the root of the repository on a machine with one CUDA GPU and
                torch.profiler (device busy time, top kernels), then the
                Evaluator on 8 synthetic scenes at 1024x2048; losses
                finite and falling, metrics finite
+  overlaps_path  make_label_generator in the overlaps mode (DRN-C-26 full
+               width, bf16, 224^2 features, batch 30, yuv420 wire, device
+               SLIC of the 1024x2048 frames: 100 segments, 10 sweeps) with
+               ground truth: a warm-up batch, then 3 timed batches with every
+               count set to 0 just before and read just after (11 assignment
+               launches a batch); masks full resolution and not empty; one
+               batch with slic_device_downscale=2 (2x2-block-constant masks)
+  direct_path  the direct mode at the bench unit (5 groups x 30 at 224^2,
+               yuv420): a warm-up unit, then 3 timed units
+  cli          spalign_tpu_torch.cli.label_gen.main in the overlaps mode on
+               4 synthetic scenes at 1024x2048, in-process
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -61,7 +81,10 @@ import numpy as np
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 N_SCENES = 30
+N_FULL_SCENES = 15  # at 1024x2048, with their mirror images: 30 frames
+FULL_HW = (1024, 2048)
 UNIT = 150  # 5 groups x 30 images
+OVERLAPS_BATCHES = 3
 # the SegNetBasic train step's pooling levels (B, H, W, C) at 512x1024
 POOL_LEVELS = [(8, 512 >> i, 1024 >> i, 64) for i in range(4)]
 SEGNET_SHAPE = (8, 64, 128, 512)  # SegNet's fourth block at 512x1024
@@ -114,6 +137,9 @@ class Frames:
         idx = [i % len(self.frames) for i in indices]
         return self.frames[idx], self.labels[idx]
 
+    def full_images(self, indices):
+        return self.full[[i % len(self.full) for i in indices]]
+
 
 def make_scenes():
     """30 synthetic scenes at 512x1024 and their mirror images: 60 frames
@@ -122,6 +148,21 @@ def make_scenes():
 
     ds = SyntheticRoadScenes(n=N_SCENES, full_shape=(512, 1024), seed=7)
     imgs, labels = ds.resized_batch(range(N_SCENES), (512, 1024))
+    frames = np.concatenate([imgs, imgs[:, :, ::-1]])
+    labels = np.concatenate([labels, labels[:, :, ::-1]])
+    return np.ascontiguousarray(frames), np.ascontiguousarray(labels)
+
+
+def make_full_scenes():
+    """15 synthetic scenes at 1024x2048 and their mirror images: 30 frames
+    with their labelIds (made on 8 threads)."""
+    from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
+
+    ds = SyntheticRoadScenes(n=N_FULL_SCENES, full_shape=FULL_HW, seed=13)
+    with ThreadPoolExecutor(8) as pool:
+        items = list(pool.map(ds.__getitem__, range(N_FULL_SCENES)))
+    imgs = np.stack([im for im, _ in items])
+    labels = np.stack([lab for _, lab in items])
     frames = np.concatenate([imgs, imgs[:, :, ::-1]])
     labels = np.concatenate([labels, labels[:, :, ::-1]])
     return np.ascontiguousarray(frames), np.ascontiguousarray(labels)
@@ -165,6 +206,36 @@ def lloyd_bound_ms(lab, c0, shape, n_iter):
               & ((px[:, None] - cx[None]).abs() <= shape["window"]))
     pairs = int(in_win.sum()) * b
     n_ops = (n_iter + 1) * pairs * 10 + n_iter * b * hw * 6
+    return (*bound_ms(n_bytes, n_ops), n_bytes, n_ops)
+
+
+def window_pairs(centers, shape):
+    """(pixel, centre) pairs within the window, summed over the batch:
+    the window test is separable, so each centre's pairs are its rows in
+    the window times its columns in the window (the kernel's float32
+    compares)."""
+    import torch
+
+    win = torch.tensor(shape["window"], dtype=torch.float32,
+                       device=centers.device)
+    ys = torch.arange(shape["height"], dtype=torch.float32,
+                      device=centers.device)
+    xs = torch.arange(shape["width"], dtype=torch.float32,
+                      device=centers.device)
+    ny = ((ys - centers[..., 3:4]).abs() <= win).sum(-1)
+    nx = ((xs - centers[..., 4:5]).abs() <= win).sum(-1)
+    return int((ny * nx).sum())
+
+
+def assign_bound_ms(lab, centers, shape):
+    """Least time of one assignment launch on an H100: the larger of its
+    bytes (lab and the centres read once, labels written once) over HBM
+    bandwidth and its float32 operations over the non-tensor float32
+    peak, counted from this run's centres: the score (5 multiplies, 4
+    adds, 1 subtract) of every (pixel, centre) pair within the window."""
+    b, _, hw = lab.shape
+    n_bytes = lab.numel() * 4 + centers.numel() * 4 + b * hw * 4
+    n_ops = window_pairs(centers, shape) * 10
     return (*bound_ms(n_bytes, n_ops), n_bytes, n_ops)
 
 
@@ -532,6 +603,324 @@ def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
     return launches
 
 
+def per_sweep_split(lab, c0, shape, n_iter):
+    """The per-sweep engine's loop (``kernels/slic.py::slic_per_sweep``)
+    with CUDA events around its parts: device milliseconds of the pixel
+    rows, the ``n_iter + 1`` assignment launches, the ``n_iter`` centre
+    updates, and the whole."""
+    import torch
+
+    from spalign_tpu_torch.kernels.slic_assign import slic_assign
+    from spalign_tpu_torch.kernels.slic_fused import (pixel_rows,
+                                                      update_centers)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    torch.cuda.synchronize()
+    start = event()
+    rows = pixel_rows(lab, shape["width"])
+    rows_done = event()
+    centers, marks = c0, []
+    for _ in range(n_iter):
+        a0 = event()
+        labels = slic_assign(lab, centers, **shape)
+        a1 = event()
+        centers = update_centers(rows, labels, centers)
+        marks.append((a0, a1, event()))
+    a0 = event()
+    slic_assign(lab, centers, **shape)
+    end = event()
+    end.synchronize()
+    return {"rows_ms": start.elapsed_time(rows_done),
+            "assign_ms": a0.elapsed_time(end) + sum(
+                m[0].elapsed_time(m[1]) for m in marks),
+            "update_ms": sum(m[1].elapsed_time(m[2]) for m in marks),
+            "total_ms": start.elapsed_time(end)}
+
+
+def assign_equal(lab, centers, shape):
+    """Kernel against plain version: max |label difference| (0 when
+    bit-equal), and whether the labels lie in [0, K)."""
+    import torch
+
+    from spalign_tpu_torch.kernels.slic_assign import (slic_assign,
+                                                       slic_assign_reference)
+
+    got = slic_assign(lab, centers, **shape)
+    torch.cuda.synchronize()
+    want = slic_assign_reference(lab, centers, **shape)
+    err = int((got.long() - want.long()).abs().max())
+    k = centers.shape[1]
+    return err, bool(((got >= 0) & (got < k)).all())
+
+
+def slic_assign_phase(frames_full, frames512, sp):
+    """The assignment kernel at the overlaps path's inputs, K ~ 1000, a
+    ragged H*W and empty windows; the centre update's two reductions; the
+    whole per-sweep SLIC; the two engines at 30 x 512x1024."""
+    import torch
+
+    from spalign_tpu_torch.kernels import slic_fused
+    from spalign_tpu_torch.kernels.slic import slic_inputs, slic_per_sweep
+    from spalign_tpu_torch.kernels.slic_assign import (slic_assign,
+                                                       slic_assign_reference)
+    from spalign_tpu_torch.pipeline.wire import decode_yuv420, pack_yuv420
+
+    dev = torch.device("cuda")
+    seg, comp, n_iter = sp.n_slic_segments, sp.slic_compactness, sp.slic_iters
+    wire = torch.from_numpy(pack_yuv420(frames_full)).to(dev)
+    images = decode_yuv420(wire, FULL_HW)
+    del wire
+    lab, c0, shape = slic_inputs(images, seg, comp)
+    k = c0.shape[1]
+    rows = slic_fused.pixel_rows(lab, shape["width"])
+    c3 = c0
+    for _ in range(3):
+        c3 = slic_fused.update_centers(rows, slic_assign(lab, c3, **shape),
+                                       c3)
+    errs = {"grid": assign_equal(lab, c0, shape),
+            "after_3_sweeps": assign_equal(lab, c3, shape)}
+    kernel_ms, kernel_runs = cuda_ms(lambda: slic_assign(lab, c3, **shape),
+                                     reps=20)
+    plain_ms, _ = cuda_ms(
+        lambda: slic_assign_reference(lab, c3, **shape), reps=3, warmup=1)
+    least_ms, bound_by, n_bytes, n_ops = assign_bound_ms(lab, c3, shape)
+    labels = slic_assign(lab, c3, **shape)
+    rows = slic_fused.pixel_rows(lab, shape["width"])
+    # the same integer sums by index_add_ over int64, the alternative
+    # reduction, timed beside update_centers' bincount as a yardstick
+    slots = len(c3) * k
+    rows_i64 = rows.to(torch.int64)
+    ids = (labels.long() + (torch.arange(len(c3), device=dev) * k)[:, None]
+           ).reshape(-1)
+
+    def index_add():
+        return torch.zeros((6, slots), dtype=torch.int64,
+                           device=dev).index_add_(1, ids, rows_i64)
+
+    update = {
+        "bincount_float64": cuda_ms(lambda: slic_fused.update_centers(
+            rows, labels, c3), reps=10)[0],
+        "index_add_int64": cuda_ms(index_add, reps=10)[0]}
+    same_sums = torch.equal(index_add(), torch.stack([
+        torch.bincount(ids, weights=r, minlength=slots)
+        for r in rows]).to(torch.int64))
+    del rows, rows_i64, ids
+    split = per_sweep_split(lab, c0, shape, n_iter)
+    slic_ms, _ = cuda_ms(lambda: slic_per_sweep(lab, c0, n_iter=n_iter,
+                                                **shape), reps=3, warmup=1)
+    del lab, c0, c3, labels, images
+    torch.cuda.empty_cache()
+
+    # K = 990 on 2 frames, a ragged H*W, every window empty
+    images = torch.from_numpy(frames_full[:2, :1000, :1998]).to(dev)
+    lab, c0, kshape = slic_inputs(images, 1000, comp)
+    far = c0.clone()
+    far[..., 3] += 10 * kshape["height"]
+    rows = slic_fused.pixel_rows(lab, kshape["width"])
+    c2 = c0
+    for _ in range(2):
+        c2 = slic_fused.update_centers(rows, slic_assign(lab, c2, **kshape),
+                                       c2)
+    errs.update({"k990_ragged_grid": assign_equal(lab, c0, kshape),
+                 "k990_ragged_after_2_sweeps": assign_equal(lab, c2, kshape),
+                 "empty_windows": assign_equal(lab, far, kshape)})
+    k990 = c0.shape[1]
+    del lab, c0, c2, far, rows, images
+    torch.cuda.empty_cache()
+
+    # the two engines where the Lloyd kernel takes the shape
+    images = torch.from_numpy(frames512[:30]).to(dev)
+    lab, c0, shape512 = slic_inputs(images, seg, comp)
+    lloyd = slic_fused.slic_lloyd(lab, c0, n_iter=n_iter, **shape512)
+    sweep = slic_per_sweep(lab, c0, n_iter=n_iter, **shape512)
+    engines_err = int((lloyd.long() - sweep.long()).abs().max())
+    lloyd_ms, _ = cuda_ms(lambda: slic_fused.slic_lloyd(
+        lab, c0, n_iter=n_iter, **shape512), reps=5)
+    sweep_ms, _ = cuda_ms(lambda: slic_per_sweep(
+        lab, c0, n_iter=n_iter, **shape512), reps=5)
+    del lab, c0, lloyd, sweep, images
+    torch.cuda.empty_cache()
+
+    out = {"phase": "slic_assign", "images": len(frames_full),
+           "hw": list(FULL_HW), "centres": k, "k990_centres": k990,
+           "k990_hw": [1000, 1998],
+           "max_abs_err": {n: e for n, (e, _) in errs.items()},
+           "labels_in_range": {n: r for n, (_, r) in errs.items()},
+           "kernel_ms": kernel_ms, "kernel_runs_ms": kernel_runs,
+           "plain_ms": plain_ms, "bound_ms": least_ms,
+           "bound_by": bound_by, "bytes": n_bytes, "operations": n_ops,
+           "window_pairs_per_pixel": n_ops / 10 / (len(frames_full)
+                                                   * FULL_HW[0] * FULL_HW[1]),
+           "update_ms": update, "update_reductions_equal": same_sums,
+           "per_sweep_slic_ms": slic_ms,
+           "per_sweep_split_ms": split,
+           "engines_512x1024": {"images": 30, "max_abs_err": engines_err,
+                                "lloyd_ms": lloyd_ms,
+                                "per_sweep_ms": sweep_ms}}
+    emit(out)
+    for name, (err, in_range) in errs.items():
+        check(err == 0, f"slic_assign bit-equal to its plain version: "
+                        f"{name}")
+        check(in_range, f"slic_assign labels in [0, K): {name}")
+    check(engines_err == 0, "per-sweep engine equals the Lloyd kernel")
+    check(same_sums, "index_add_ and bincount give the same centre sums")
+    return out
+
+
+def reset_counts():
+    from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
+
+    slic_fused.slic_lloyd.launches = 0
+    slic_assign.slic_assign.launches = 0
+    pooling.reset_launches()
+
+
+def read_counts():
+    from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
+
+    return {"slic_lloyd": slic_fused.slic_lloyd.launches,
+            "slic_assign": slic_assign.slic_assign.launches,
+            "pool2x2": pooling.pool2x2.launches,
+            "scatter2x2": pooling.scatter2x2.launches,
+            "gather2x2": pooling.gather2x2.launches}
+
+
+def stage_seconds(records, per):
+    """Mean host seconds per unit (every ``per`` records) by stage."""
+    return {key[5:]: float(np.mean([r[key] for r in records[::per]]))
+            for key in records[0] if key.startswith("time_")}
+
+
+def overlaps_phase(frames_full, labels_full):
+    """The overlaps mode on the 1024x2048 frames, batch 30."""
+    import torch
+
+    from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
+    from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
+    from spalign_tpu_torch.pipeline.direct import make_label_generator
+    from spalign_tpu_torch.pipeline.wire import pack_yuv420
+
+    sp = SuperpixelConfig(method="slic", n_slic_segments=100, slic_iters=10,
+                          slic_enforce_connectivity=False)
+    cfg = LabelGenConfig(mode="overlaps", batchsize=30,
+                         upload_format="yuv420", save_masks=False,
+                         overlap_threshold=0.01, superpixel=sp)
+    t0 = time.time()
+    frames = np.stack([resize_bicubic_u8(f, cfg.resize_shape)
+                       for f in frames_full])
+    t_resize = time.time() - t0
+    n = len(frames_full)
+    gen = make_label_generator(cfg)
+    gen.process_dataset(Frames(frames, labels_full, n, full=frames_full),
+                        save=False)
+    timed = Frames(frames, labels_full, OVERLAPS_BATCHES * n,
+                   full=frames_full)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.time()
+    records = gen.process_dataset(timed, save=False)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated()
+    ious = [r["road_iou"] for r in records]
+    predicted = [r["TP"] + r["FP"] for r in records]
+    road, _, diag, _ = gen.run_batch(frames, full_images=frames_full)
+    road_shape = list(road.shape)
+    t0 = time.time()
+    pack_yuv420(frames_full)
+    t_pack = time.time() - t0
+
+    half = make_label_generator(dataclasses.replace(
+        cfg, superpixel=dataclasses.replace(sp, slic_device_downscale=2)))
+    road2, _, _, _ = half.run_batch(frames, full_images=frames_full)
+    block = road2[:, ::2, ::2].repeat_interleave(2, 1).repeat_interleave(
+        2, 2)
+    out = {"phase": "overlaps_path", "images": len(records),
+           "batches": OVERLAPS_BATCHES, "batch": n,
+           "full_hw": list(FULL_HW), "seconds": elapsed,
+           "images_per_s": len(records) / elapsed,
+           "batch_stage_seconds": stage_seconds(records, n),
+           "launches": counts, "peak_memory_bytes": peak,
+           "mean_road_iou": float(np.mean(ious)),
+           "min_predicted_road_px": int(min(predicted)),
+           "n_superpixels": diag["n_superpixels"][0],
+           "mask_shape": road_shape, "resize_seconds": t_resize,
+           "full_frame_pack_seconds": t_pack,
+           "downscale2_mask_shape": list(road2.shape),
+           "downscale2_block_constant": bool(torch.equal(road2, block))}
+    emit(out)
+    check(len(records) == OVERLAPS_BATCHES * n, "one record per image")
+    check(counts["slic_assign"] == 11 * OVERLAPS_BATCHES,
+          f"11 assignment launches a batch, got {counts}")
+    check(min(predicted) > 0, "no all-empty road mask")
+    check(all(np.isfinite(ious)), "finite road IoU")
+    check(road_shape == [n, *FULL_HW], "full-resolution masks")
+    check(out["downscale2_mask_shape"] == [n, *FULL_HW]
+          and out["downscale2_block_constant"],
+          "slic_device_downscale=2: 2x2-block-constant full-res masks")
+    return out
+
+
+def direct_phase(frames, labels):
+    """The direct mode at the bench unit."""
+    import torch
+
+    from spalign_tpu_torch.config import LabelGenConfig
+    from spalign_tpu_torch.pipeline.direct import make_label_generator
+
+    cfg = LabelGenConfig(mode="direct", batchsize=30, groups_per_dispatch=5,
+                         upload_format="yuv420", save_masks=False)
+    gen = make_label_generator(cfg)
+    gen.process_dataset(Frames(frames, labels, UNIT), save=False)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    records = gen.process_dataset(Frames(frames, labels, 3 * UNIT),
+                                  save=False)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    ious = [r["road_iou"] for r in records]
+    out = {"phase": "direct_path", "images": len(records), "units": 3,
+           "seconds": elapsed, "images_per_s": len(records) / elapsed,
+           "unit_stage_seconds": stage_seconds(records, UNIT),
+           "mean_road_iou": float(np.mean(ious)),
+           "min_predicted_road_px": int(min(r["TP"] + r["FP"]
+                                            for r in records)),
+           "kmeans_iters": sorted({r["kmeans_iters"] for r in records}),
+           "launches": read_counts()}
+    emit(out)
+    check(len(records) == 3 * UNIT, "one record per image")
+    check(all(np.isfinite(ious)), "finite road IoU")
+    return out
+
+
+def cli_phase():
+    """The label_gen CLI in-process: overlaps on 4 synthetic scenes."""
+    from spalign_tpu_torch.cli import label_gen
+
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    t0 = time.time()
+    records = label_gen.main([
+        "--mode", "overlaps", "--synthetic", "4", "--synthetic_shape",
+        str(FULL_HW[0]), str(FULL_HW[1]), "--superpixel_method", "slic",
+        "--slic_no_connectivity", "--out_dir", out_dir])
+    elapsed = time.time() - t0
+    with open(os.path.join(out_dir, "summary.txt")) as f:
+        summary = f.read()
+    out = {"phase": "cli", "records": len(records), "seconds": elapsed,
+           "summary": summary.splitlines()}
+    emit(out)
+    check(len(records) == 4, "one record per scene")
+    check(all(np.isfinite(r["road_iou"]) for r in records), "finite IoU")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -540,7 +929,7 @@ def main() -> int:
         return 2
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
     from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
-    from spalign_tpu_torch.kernels import pooling, slic_fused
+    from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
     from spalign_tpu_torch.kernels.slic import slic_inputs
     from spalign_tpu_torch.models.drn import (DRN_FACTORIES,
                                               preprocess_imagenet)
@@ -558,7 +947,7 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-    libs = [slic_fused.LIBRARY, pooling.LIBRARY]
+    libs = [slic_fused.LIBRARY, slic_assign.LIBRARY, pooling.LIBRARY]
     t0 = time.time()
     build_libraries(libs)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
@@ -613,17 +1002,23 @@ def main() -> int:
     check(float(agreement.min()) > 0.995, "kernel/plain label agreement")
     check(in_range, "labels in [0, K)")
 
+    # --- the assignment kernel at the overlaps path's inputs
+    t0 = time.time()
+    frames_full, labels_full = make_full_scenes()
+    t_full_scenes = time.time() - t0
+    assign = slic_assign_phase(frames_full, frames512, sp)
+
     # --- the main path: SpalignLabelGenerator at the bench configuration
     gen = SpalignLabelGenerator(cfg)
     warm = Frames(frames, labels, UNIT)
     gen.process_dataset(warm, save=False)
     timed = Frames(frames, labels, 3 * UNIT)
-    slic_fused.slic_lloyd.launches = 0
     torch.cuda.synchronize()
+    reset_counts()
     t0 = time.time()
     records = gen.process_dataset(timed, save=False)
     elapsed = time.time() - t0
-    launches = slic_fused.slic_lloyd.launches
+    launches = read_counts()["slic_lloyd"]
     check(len(records) == 3 * UNIT, "one record per image")
     ious = [r["road_iou"] for r in records]
     predicted_road = [r["TP"] + r["FP"] for r in records]
@@ -662,7 +1057,14 @@ def main() -> int:
           "f32_max_abs": float(ref.abs().max()),
           "relative": diff / float(ref.abs().max())})
 
-    del f32, ref
+    del f32, ref, gen
+    torch.cuda.empty_cache()
+
+    # --- the overlaps and direct modes, and the CLI
+    overlaps = overlaps_phase(frames_full, labels_full)
+    del frames_full, labels_full
+    direct_phase(frames, labels)
+    cli_phase()
     torch.cuda.empty_cache()
 
     # --- stage 2: the pooling kernels, then SegNetBasic training
@@ -677,7 +1079,15 @@ def main() -> int:
         "launches": launches, "max_abs_err": max_abs_err,
         "agreement": float(agreement.min()),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": lloyd_ms, "bound_by": lloyd_by, "library_ms": None}]
+        "bound_ms": lloyd_ms, "bound_by": lloyd_by, "library_ms": None}, {
+        "name": "slic_assign", "route": "cuda",
+        "source": "spalign_tpu_torch/csrc/slic_assign.cu",
+        "replaces": "spalign_tpu/kernels/experimental/slic_pallas.py:32",
+        "launches": overlaps["launches"]["slic_assign"],
+        "max_abs_err": max(assign["max_abs_err"].values()),
+        "ms": assign["kernel_ms"], "kernel_ms": assign["kernel_ms"],
+        "plain_ms": assign["plain_ms"], "bound_ms": assign["bound_ms"],
+        "bound_by": assign["bound_by"], "library_ms": None}]
     # pooling: sums over the train step's four float32 levels (one
     # launch of the kernel at each), launches over the timed steps
     for name, v in pool_summary.items():
@@ -689,7 +1099,8 @@ def main() -> int:
             "kernel_ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": v["library_ms"]})
-    emit({"kernels": kernels, "seconds": round(time.time() - t_start, 3)})
+    emit({"kernels": kernels, "full_scene_seconds": round(t_full_scenes, 3),
+          "seconds": round(time.time() - t_start, 3)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

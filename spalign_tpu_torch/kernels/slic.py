@@ -1,12 +1,22 @@
 """SLIC superpixels of a batch of images on the device.
 
 Counterpart of ``spalign_tpu/kernels/slic.py`` with the semantics of its
-fused Lloyd kernel (``kernels/slic_fused.py``): CIELAB features, centres
-seeded on a regular grid by sampling LAB at the int-truncated grid
-positions, a 2*step Chebyshev window on raw coordinates, compactness
-folded into the scaled coordinates, the lowest id winning ties and an
-empty window falling back to the unmasked argmax.  Labels are not
-guaranteed 4-connected.
+Pallas kernels: CIELAB features, centres seeded on a regular grid by
+sampling LAB at the int-truncated grid positions, a 2*step Chebyshev
+window on raw coordinates, compactness folded into the scaled
+coordinates, the lowest id winning ties and an empty window falling back
+to the unmasked argmax.  Labels are not guaranteed 4-connected.
+
+Two engines compute the same labels (the counterpart of JAX's
+``slic(use_fused=...)`` and ``slic(use_pallas=...)``):
+
+  * ``"lloyd"``: the whole Lloyd loop in one kernel, one block per image
+    (``csrc/slic_lloyd.cu``): K <= 128 and H*W*max(H, W) < 2^32;
+  * ``"assign"``: the per-sweep loop -- the assignment kernel
+    (``csrc/slic_assign.cu``) launched ``n_iter + 1`` times over tiles of
+    pixels, with the shared fixed-point centre update between launches:
+    any K <= 1024 and H*W < 2^27, the size of the full-resolution frames
+    of the overlaps mode.
 """
 
 from __future__ import annotations
@@ -14,7 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spalign_tpu_torch.kernels.slic_fused import slic_lloyd
+from spalign_tpu_torch.kernels.slic_assign import slic_assign
+from spalign_tpu_torch.kernels.slic_fused import (pixel_rows, slic_lloyd,
+                                                  update_centers)
 from spalign_tpu_torch.utils.device import resolve_device
 
 
@@ -81,14 +93,46 @@ def slic_inputs(images: torch.Tensor, n_segments: int = 100,
     return lab_planar.contiguous(), c0.contiguous(), shape
 
 
+# H*W bound of the per-sweep engine: its fixed-point sums (|v| < 2^26 a
+# pixel) stay exact in the float64 centre update (the Lloyd engine's own
+# bound, H*W*max(H, W) < 2^32, is tighter)
+MAX_SWEEP_PIXELS = 2 ** 27
+
+
+def slic_per_sweep(lab: torch.Tensor, c0: torch.Tensor, *, height: int,
+                   width: int, n_iter: int, ratio: float,
+                   window: float) -> torch.Tensor:
+    """The per-sweep Lloyd loop (JAX ``kernels/slic.py:171-190``):
+    ``n_iter`` times an assignment then the centre update, then a final
+    assignment.  Same inputs and labels as ``slic_lloyd``."""
+    if height * width >= MAX_SWEEP_PIXELS:
+        raise ValueError(f"image {height}x{width} too large")
+    if n_iter < 0:
+        raise ValueError(f"n_iter={n_iter} must be >= 0")
+    shape = dict(height=height, width=width, ratio=ratio, window=window)
+    rows = pixel_rows(lab, width)
+    centers = c0
+    for _ in range(n_iter):
+        centers = update_centers(rows, slic_assign(lab, centers, **shape),
+                                 centers)
+    return slic_assign(lab, centers, **shape)
+
+
+ENGINES = {"lloyd": slic_lloyd, "assign": slic_per_sweep}
+
+
 def slic(images, n_segments: int = 100, compactness: float = 10.0,
-         n_iter: int = 10, device="cuda") -> torch.Tensor:
+         n_iter: int = 10, engine: str = "lloyd",
+         device="cuda") -> torch.Tensor:
     """SLIC superpixels of (B, H, W, 3) images with values 0..255.
 
     Returns a (B, H, W) int32 label map with ids in [0, K), K the grid
-    size.  On CUDA the Lloyd loop is the kernel of
-    ``csrc/slic_lloyd.cu``; on the CPU its plain version."""
+    size.  ``engine`` picks the Lloyd loop (see the module docstring); on
+    CUDA it runs the engine's kernel, on the CPU its plain version."""
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {sorted(ENGINES)}, got "
+                         f"{engine!r}")
     images = torch.as_tensor(images, device=resolve_device(device))
     b, h, w, _ = images.shape
     lab, c0, shape = slic_inputs(images, n_segments, compactness)
-    return slic_lloyd(lab, c0, n_iter=n_iter, **shape).reshape(b, h, w)
+    return ENGINES[engine](lab, c0, n_iter=n_iter, **shape).reshape(b, h, w)

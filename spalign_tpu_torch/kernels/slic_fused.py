@@ -25,6 +25,8 @@ import ctypes
 import torch
 
 from spalign_tpu_torch.kernels._build import CudaLibrary
+from spalign_tpu_torch.kernels.slic_assign import (check_inputs,
+                                                   slic_assign_reference)
 
 MAX_CENTERS = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -33,24 +35,11 @@ LIBRARY = CudaLibrary("slic_lloyd", {
     "spalign_slic_lloyd": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _I, _I,
                                           _F, _F, _P]),
 })
-# pixel x centre elements the plain version materializes per chunk
-_PLAIN_CHUNK = 1 << 26
 
 
 def _check(lab: torch.Tensor, c0: torch.Tensor, height: int, width: int,
            n_iter: int):
-    if lab.dim() != 3 or lab.shape[1] != 3 or lab.shape[2] != height * width:
-        raise ValueError(f"lab must be (B, 3, {height * width}), got "
-                         f"{tuple(lab.shape)}")
-    if c0.dim() != 3 or c0.shape[0] != lab.shape[0] or c0.shape[2] != 5:
-        raise ValueError(f"c0 must be (B, K, 5), got {tuple(c0.shape)}")
-    if not 0 < c0.shape[1] <= MAX_CENTERS:
-        raise ValueError(f"K={c0.shape[1]} centres; the kernel takes "
-                         f"1..{MAX_CENTERS}")
-    if lab.dtype != torch.float32 or c0.dtype != torch.float32:
-        raise TypeError("lab and c0 must be float32")
-    if lab.device != c0.device:
-        raise ValueError("lab and c0 must be on the same device")
+    check_inputs(lab, c0, height, width, MAX_CENTERS)
     if n_iter < 0:
         raise ValueError(f"n_iter={n_iter} must be >= 0")
     # integer coordinate sums must fit 32 bits
@@ -94,61 +83,52 @@ def slic_lloyd_reference(lab: torch.Tensor, c0: torch.Tensor, *,
                          height: int, width: int, n_iter: int,
                          ratio: float, window: float) -> torch.Tensor:
     """Plain PyTorch version of the kernel, the same arithmetic in the
-    same order: float32 products and sums without contraction for the
-    score and |c|^2/2, fixed-point (2^16) int64 sums of L, a, b, integer
-    sums of y, x and the counts, centre means in float64 rounded to
-    float32.  Its labels equal the kernel's bit for bit."""
+    same order: ``slic_assign_reference`` for each assignment and
+    ``update_centers`` between them.  Its labels equal the kernel's bit
+    for bit."""
     _check(lab, c0, height, width, n_iter)
+    rows = pixel_rows(lab, width)
+    centers = c0
+    shape = dict(height=height, width=width, ratio=ratio, window=window)
+    for _ in range(n_iter):
+        labels = slic_assign_reference(lab, centers, **shape)
+        centers = update_centers(rows, labels, centers)
+    return slic_assign_reference(lab, centers, **shape)
+
+
+def pixel_rows(lab: torch.Tensor, width: int) -> torch.Tensor:
+    """(6, B*H*W) float64 per-pixel addends of the centre update, all
+    integers (exact below 2^53): round(L * 2^16), round(a * 2^16),
+    round(b * 2^16), y, x, 1.  Loop-invariant: made once per SLIC
+    call."""
     b, _, hw = lab.shape
-    k = c0.shape[1]
-    dev = lab.device
-    f32 = torch.float32
-    ratio_t = torch.tensor(ratio, dtype=f32, device=dev)
-    window_t = torch.tensor(window, dtype=f32, device=dev)
-    pix = torch.arange(hw, device=dev)
+    f64 = torch.float64
+    pix = torch.arange(hw, device=lab.device)
     py = torch.div(pix, width, rounding_mode="floor")
-    px = pix - py * width
-    fy, fx = py.to(f32), px.to(f32)
-    pl, pa, pb = lab[:, 0], lab[:, 1], lab[:, 2]  # (B, HW)
-    pyr, pxr = fy * ratio_t, fx * ratio_t
-    q = torch.round(lab * 65536.0).to(torch.int64)  # (B, 3, HW)
-    ints = torch.stack([py, px, torch.ones_like(py)], -1).expand(b, hw, 3)
-    centers = c0.clone()  # (B, K, 5): L, a, b, y, x
-    ids_base = (torch.arange(b, device=dev) * k)[:, None]
-    chunk = max(1, _PLAIN_CHUNK // max(1, hw * k))
-    for it in range(n_iter + 1):
-        cl, ca, cb = centers[..., 0], centers[..., 1], centers[..., 2]
-        cy, cx = centers[..., 3], centers[..., 4]
-        cyr, cxr = cy * ratio_t, cx * ratio_t
-        half = 0.5 * (cl * cl + ca * ca + cb * cb + cyr * cyr + cxr * cxr)
-        labels = torch.cat([
-            _assign(pl[i:j], pa[i:j], pb[i:j], pyr, pxr, fy, fx,
-                    [t[i:j] for t in (cl, ca, cb, cyr, cxr, half, cy, cx)],
-                    window_t)
-            for i, j in ((i, min(i + chunk, b)) for i in range(0, b, chunk))])
-        if it == n_iter:
-            return labels.to(torch.int32)
-        ids = (labels + ids_base).reshape(-1)
-        qsum = torch.zeros((b * k, 3), dtype=torch.int64, device=dev)
-        qsum.index_add_(0, ids, q.transpose(1, 2).reshape(-1, 3))
-        isum = torch.zeros((b * k, 3), dtype=torch.int64, device=dev)
-        isum.index_add_(0, ids, ints.reshape(-1, 3))
-        n = isum[:, 2:].to(torch.float64)
-        mean = torch.cat([qsum.to(torch.float64) / n / 65536.0,
-                          isum[:, :2].to(torch.float64) / n], -1).to(f32)
-        centers = torch.where(n > 0, mean, centers.reshape(b * k, 5)
-                              ).reshape(b, k, 5)
+    q = torch.round(lab * 65536.0).to(f64)  # (B, 3, HW)
+    ints = torch.stack([py, pix - py * width, torch.ones_like(py)]).to(f64)
+    return torch.cat([q.transpose(0, 1).reshape(3, b * hw),
+                      ints.repeat(1, b)])
 
 
-def _assign(pl, pa, pb, pyr, pxr, fy, fx, cent, window):
-    """(b, HW) labels for a chunk of images: argmax of the score among
-    the centres in the window, lowest id on ties, unmasked argmax when
-    the window is empty."""
-    cl, ca, cb, cyr, cxr, half, cy, cx = (t[:, None, :] for t in cent)
-    pl, pa, pb = pl[..., None], pa[..., None], pb[..., None]
-    score = (cl * pl + ca * pa + cb * pb + cyr * pyr[None, :, None]
-             + cxr * pxr[None, :, None] - half)  # (b, HW, K)
-    in_win = (((fy[None, :, None] - cy).abs() <= window)
-              & ((fx[None, :, None] - cx).abs() <= window))
-    masked = torch.where(in_win, score, float("-inf"))
-    return torch.where(in_win.any(-1), masked.argmax(-1), score.argmax(-1))
+def update_centers(rows: torch.Tensor, labels: torch.Tensor,
+                   centers: torch.Tensor) -> torch.Tensor:
+    """The centre update both SLIC engines share: every centre moves to
+    the mean of its members, an empty one stays.  The sums are integers
+    (fixed-point L, a, b; y, x and the counts) summed by ``bincount`` in
+    float64, exact while they stay below 2^53, so they do not depend on
+    the order of the card's atomics; the means are taken in float64 and
+    rounded to float32, as the Lloyd kernel does.
+
+    rows: ``pixel_rows``; labels (B, H*W) of the sweep; centers
+    (B, K, 5).  Returns (B, K, 5)."""
+    b, k, _ = centers.shape
+    ids = (labels.to(torch.int64)
+           + (torch.arange(b, device=labels.device) * k)[:, None]).reshape(-1)
+    sums = torch.stack([torch.bincount(ids, weights=r, minlength=b * k)
+                        for r in rows])
+    n = sums[5:]
+    mean = torch.cat([sums[:3] / n / 65536.0, sums[3:5] / n]).to(
+        torch.float32).T
+    return torch.where(n.T > 0, mean, centers.reshape(b * k, 5)).reshape(
+        b, k, 5).contiguous()

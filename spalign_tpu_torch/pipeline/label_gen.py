@@ -1,16 +1,20 @@
-"""Label generation on the fused-SLIC path: the road-mask program on the card.
+"""Label generation: the shared host loop and the spalign mode.
 
-Counterpart of ``spalign_tpu/pipeline/label_gen.py`` on its fused-SLIC
-path (``SpalignLabelGenerator._fused_program``).  For each unit of G
-clustering groups of ``batchsize`` images:
+Counterpart of ``spalign_tpu/pipeline/label_gen.py``.
+``LabelGeneratorBase`` is the host loop the three modes share (a
+producer thread that loads and uploads units ahead, ``in_flight`` units
+dispatched before the oldest is finished, scoring against full-resolution
+labelIds, ``.npy`` mask saving, resume); the direct and overlaps modes
+live in ``pipeline/direct.py``.  ``SpalignLabelGenerator`` runs the
+fused-SLIC path (``SpalignLabelGenerator._fused_program``): for each unit
+of G clustering groups of ``batchsize`` images
 
     yuv420 wire -> decode -> [d x d box mean] -> SLIC (CUDA kernel)
       -> DRN features -> superpixel-align -> prior -> per-group weighted
       k-means -> paint -> bit-packed road masks
 
-run eagerly on one device; then on the host: the bounded retry when a
-road mask comes out empty, scoring against full-resolution labelIds, and
-optional ``.npy`` mask saving.
+eagerly on one device, then on the host the bounded retry when a road
+mask comes out empty.
 
 Random draws (anchor bits and the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
@@ -19,8 +23,8 @@ package's draws.
 
 Not ported yet (they raise ``NotImplementedError``): the host superpixel
 engines (felzenszwalb, SLIC with connectivity), the bit-parity mode
-(``kmeans.init='reference'``), the direct and overlaps modes and the
-dynamic-k sweep.
+(``kmeans.init='reference'``), diagnostic panels and the dynamic-k
+sweep.
 """
 
 from __future__ import annotations
@@ -203,6 +207,14 @@ def _name(dataset, attr, idx):
     return fn(idx) if callable(fn) else f"img_{idx:06d}.png"
 
 
+def _load_full_images(dataset, indices):
+    """(B, H, W, 3) uint8 original-resolution images (the overlaps mode
+    computes its superpixels at full resolution)."""
+    if hasattr(dataset, "full_images"):
+        return np.stack(dataset.full_images(list(indices)))
+    return np.stack([np.asarray(dataset[i][0], np.uint8) for i in indices])
+
+
 def _load_batch(dataset, indices, resize_hw):
     """(B, h, w, 3) uint8 resized images + full-res labelIds (or None)."""
     if hasattr(dataset, "resized_batch"):
@@ -238,28 +250,33 @@ def batch_slices(start_index: int, end_index: int, bs: int):
     return slices
 
 
-class SpalignLabelGenerator:
-    """End-to-end label generation over a dataset (reference
-    batch_spalign_kmeans.py main loop :533-548 + estimate_road_mask), on
-    the fused-SLIC path.
+class LabelGeneratorBase:
+    """The host loop the three label-generation modes share.
+
+    Subclasses implement ``dispatch_batch`` (run a unit's device program
+    and start its results on the way to the host, under ``"_host"``) and
+    ``finish_batch`` (wait for them).  Every mode downloads its road masks
+    bit-packed (``road_packed``), at 1/``packed_upscale`` of the mask
+    resolution when the mode says so.
 
     Args:
-      cfg: LabelGenConfig with superpixel method 'slic',
-        slic_enforce_connectivity=False and kmeans.init='device'.
-      state_dict: DRN weights (e.g. from ``convert.from_jax``); random
-        weights from a fixed seed when None.
+      cfg: LabelGenConfig of the subclass's mode.
+      state_dict: DRN weights (e.g. from ``convert.from_jax`` or a
+        ``.pth`` checkpoint); random weights from a fixed seed when None.
       seed: host seed stream of the per-group seeds (default
         cfg.kmeans.seed).
       device: 'cuda' (default; raises without CUDA) or 'cpu'.
     """
 
+    mode = None  # the cfg.mode the subclass runs
+    needs_full_images = False
     in_flight = 2  # units dispatched ahead of the blocking finish
 
     def __init__(self, cfg: LabelGenConfig, state_dict=None,
                  model_name: str = "drn_c_26", seed: Optional[int] = None,
                  device="cuda"):
         self.device = resolve_device(device)
-        _validate(cfg)
+        self._validate(cfg)
         self.cfg = cfg
         if self.device.type == "cuda":
             # stated, not inherited: float32 convolutions and matmuls run
@@ -280,14 +297,28 @@ class SpalignLabelGenerator:
         p = cfg.prior
         self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
                               p.x_rel_sigma)
-        d = cfg.superpixel.slic_device_downscale
-        self._downscale = d
-        self._sp_hw = (cfg.resize_shape[0] // d, cfg.resize_shape[1] // d)
-        self.num_segments = slic_grid_size(
-            *self._sp_hw, cfg.superpixel.n_slic_segments)
         self._upload_stream = (torch.cuda.Stream(device=self.device)
                                if self.device.type == "cuda" else None)
         self._want_cluster_np = False  # set by process_dataset when saving
+
+    def _validate(self, cfg: LabelGenConfig):
+        """Raise on a configuration this generator does not run; the
+        subclasses add their superpixel rules."""
+        if cfg.mode != self.mode:
+            raise NotImplementedError(
+                f"mode={cfg.mode!r}: {type(self).__name__} runs mode="
+                f"{self.mode!r}; make_label_generator picks the generator "
+                f"of a mode")
+        if cfg.kmeans.init != "device":
+            raise NotImplementedError("the bit-parity mode (kmeans.init="
+                                      "'reference') is not ported")
+        if cfg.save_images:
+            raise NotImplementedError("diagnostic panels are not ported")
+        if cfg.upload_format not in ("rgb8", "yuv420"):
+            raise ValueError(f"unknown upload_format {cfg.upload_format}")
+        h, w = cfg.resize_shape
+        if cfg.upload_format == "yuv420" and (h % 2 or w % 2):
+            raise ValueError("yuv420 needs even resize_shape")
 
     # --- the device program ---
 
@@ -303,6 +334,254 @@ class SpalignLabelGenerator:
         if self.cfg.upload_format == "yuv420":
             return decode_yuv420(wire, self.cfg.resize_shape)
         return wire
+
+    # --- host side ---
+
+    def _next_seed(self) -> np.uint32:
+        return np.uint32(self._seed_rng.randint(0, 2 ** 31))
+
+    def _unit_seeds(self, n_groups: int):
+        return [self._next_seed() for _ in range(n_groups)]
+
+    def _upload(self, host_array: np.ndarray):
+        """Start a host array's copy to the device: pinned memory and a
+        non-blocking copy on the upload stream.  Returns (pinned host
+        tensor, device tensor, the copy's event or None on the CPU)."""
+        host = torch.from_numpy(np.ascontiguousarray(host_array))
+        if self._upload_stream is None:
+            return host, host, None
+        host = host.pin_memory()
+        with torch.cuda.stream(self._upload_stream):
+            dev = host.to(self.device, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record(self._upload_stream)
+        return host, dev, ready
+
+    def _host_prepare(self, images_uint8: np.ndarray, full_images=None,
+                      timers: Optional[StageTimer] = None) -> dict:
+        """Wire-pack the batch and start its upload (runs on the producer
+        thread, so it overlaps the previous unit's device work).  The
+        device tensors a unit uses, each with the event its producer
+        recorded, are listed under ``"ready"``."""
+        timers = timers or StageTimer()
+        with timers.stage("upload"):
+            images_uint8 = np.ascontiguousarray(images_uint8)
+            host, wire, ready = self._upload(
+                pack_yuv420(images_uint8)
+                if self.cfg.upload_format == "yuv420" else images_uint8)
+        return {"wire": wire, "host": [host], "ready": [(wire, ready)]}
+
+    def _wait_ready(self, prepared: dict):
+        """Make the current stream wait for the unit's uploads (and any
+        other device work of the producer thread)."""
+        if self.device.type != "cuda":
+            return
+        stream = torch.cuda.current_stream(self.device)
+        for tensor, event in prepared["ready"]:
+            stream.wait_event(event)
+            tensor.record_stream(stream)
+
+    def _to_host(self, fetch: dict):
+        """Start device tensors on their way to the host (pinned,
+        non-blocking); returns (host tensors, the event to wait for)."""
+        if self.device.type != "cuda":
+            return fetch, None
+        host = {}
+        for name, t in fetch.items():
+            host[name] = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host[name].copy_(t, non_blocking=True)
+        landed = torch.cuda.Event()
+        landed.record(torch.cuda.current_stream(self.device))
+        return host, landed
+
+    @staticmethod
+    def _landed(handles: dict) -> dict:
+        """Wait for a dispatch's ``_to_host`` copies; numpy arrays."""
+        host, landed = handles["_host"]
+        if landed is not None:
+            landed.synchronize()
+        return {name: t.numpy() for name, t in host.items()}
+
+    def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
+        raise NotImplementedError
+
+    def finish_batch(self, prepared: dict, handles: dict,
+                     timers: StageTimer):
+        """Wait for the unit's results: (road (B, h, w) bool device
+        tensor, cluster maps, diagnostics with per-group lists under
+        ``_per_group``); the landed numpy arrays go to
+        ``handles["host"]``."""
+        raise NotImplementedError
+
+    def run_batch(self, images_uint8: np.ndarray,
+                  timers: Optional[StageTimer] = None, full_images=None):
+        """Synchronous single-batch API: (B, h, w, 3) uint8 RGB at
+        cfg.resize_shape (and the full-resolution frames where the mode
+        needs them), one clustering group.  Returns (road_masks bool,
+        cluster_maps int32, diagnostics, StageTimer)."""
+        timers = timers or StageTimer()
+        prepared = self._host_prepare(images_uint8, full_images, timers)
+        handles = self.dispatch_batch(prepared, timers)
+        road, cluster, diag = self.finish_batch(prepared, handles, timers)
+        per_group = diag.pop("_per_group")
+        diag.update({k: (v[0] if len(v) == 1 else v)
+                     for k, v in per_group.items()})
+        return road, cluster, diag, timers
+
+    def process_dataset(self, dataset, start_index: int = 0,
+                        end_index: Optional[int] = None,
+                        save: Optional[bool] = None,
+                        writer: Optional[ResultWriter] = None,
+                        prefetch: int = 2,
+                        skip_done: Optional[set] = None):
+        """Label a dataset of (image uint8 full-res, labelIds or None)
+        pairs in clustering batches, ``groups_per_dispatch`` batches per
+        unit.  One producer thread loads and uploads ``prefetch`` units
+        ahead; ``in_flight`` units are dispatched before the oldest one
+        is finished.  ``skip_done``: image names whose batches are all
+        done already (a restart) are skipped.  Returns the per-image
+        records."""
+        cfg = self.cfg
+        n = len(dataset)
+        end_index = n if end_index is None else min(end_index, n)
+        save = cfg.save_masks if save is None else save
+        if writer is None and save:
+            writer = ResultWriter(cfg.out_dir)
+        slices = batch_slices(start_index, end_index, cfg.batchsize)
+        if skip_done:
+            slices = [(i, j) for i, j in slices
+                      if not all(_name(dataset, "image_name", idx)
+                                 in skip_done for idx in range(i, j))]
+        groups = max(1, cfg.groups_per_dispatch)
+        units = [slices[x:x + groups] for x in range(0, len(slices), groups)]
+        self._want_cluster_np = bool(save)
+        records = []
+        pending = deque()
+        for item in self._prefetched(dataset, units, prefetch):
+            handles = self.dispatch_batch(item[4], item[5])
+            pending.append((item, handles))
+            if len(pending) > self.in_flight:
+                records.extend(self._finish_loaded(
+                    dataset, *pending.popleft(), save=save, writer=writer))
+        while pending:
+            records.extend(self._finish_loaded(
+                dataset, *pending.popleft(), save=save, writer=writer))
+        return records
+
+    def _load_unit(self, dataset, unit):
+        indices = [idx for (i, j) in unit for idx in range(i, j)]
+        timers = StageTimer()
+        with timers.stage("load"):
+            imgs, labels = _load_batch(dataset, indices,
+                                       self.cfg.resize_shape)
+            full_images = (_load_full_images(dataset, indices)
+                           if self.needs_full_images else None)
+        prepared = self._host_prepare(imgs, full_images, timers)
+        prepared["n_groups"] = len(unit)
+        return (indices, imgs, labels, full_images, prepared, timers)
+
+    def _prefetched(self, dataset, units, depth):
+        """Yield loaded units in order, ``depth`` ahead on one thread."""
+        if depth <= 0 or len(units) <= 1:
+            for unit in units:
+                yield self._load_unit(dataset, unit)
+            return
+        with ThreadPoolExecutor(max_workers=1) as ex:
+            it = iter(units)
+            futures = deque()
+
+            def submit_next():
+                unit = next(it, None)
+                if unit is not None:
+                    futures.append(ex.submit(self._load_unit, dataset,
+                                             unit))
+
+            for _ in range(depth):
+                submit_next()
+            while futures:
+                item = futures.popleft().result()
+                submit_next()
+                yield item
+
+    def _finish_loaded(self, dataset, item, handles, *, save, writer):
+        cfg = self.cfg
+        indices, imgs, labels, _, prepared, timers = item
+        road, _, diag = self.finish_batch(prepared, handles, timers)
+        per_group = diag.pop("_per_group")
+        group_size = len(indices) // int(prepared.get("n_groups", 1))
+        got = handles["host"]
+        # packed masks may travel at 1/u of the mask resolution (overlaps
+        # with slic_device_downscale = u: the masks are u x u block-
+        # constant, so repeating restores them bit for bit)
+        u = int(handles.get("packed_upscale", 1))
+        road_np = unpack_mask_bits(got["road_packed"], road.shape[-1] // u)
+        if u > 1:
+            road_np = road_np.repeat(u, axis=1).repeat(u, axis=2)
+        if labels is not None:
+            with timers.stage("score"):
+                confs = [host_confusion(r, l)
+                         for r, l in zip(road_np, labels)]
+        else:
+            confs = [None] * len(indices)
+        if save:
+            out_hw = (tuple(labels.shape[1:]) if labels is not None
+                      else tuple(road_np.shape[1:]))
+            up_road = nn_resize_np(road_np.astype(np.uint8), out_hw)
+            up_cluster = nn_resize_np(got["cluster"], out_hw)
+            os.makedirs(cfg.out_dir, exist_ok=True)
+        times = timers.finish()
+        cfg_flat = flatten(cfg)
+        records = []
+        for b, idx in enumerate(indices):
+            img_fn = _name(dataset, "image_name", idx)
+            rec = {"img_fn": img_fn,
+                   "label_fn": _name(dataset, "label_name", idx)}
+            if confs[b] is not None:
+                rec.update(_confusion_record(confs[b]))
+            rec.update(cfg_flat)
+            rec.update(times)
+            rec.update(diag)
+            gi = min(b // group_size,
+                     len(next(iter(per_group.values()))) - 1)
+            rec.update({k: v[gi] for k, v in per_group.items()})
+            records.append(rec)
+            if save:
+                base = os.path.splitext(os.path.basename(img_fn))[0]
+                np.save(os.path.join(cfg.out_dir, base), up_road[b])
+                np.save(os.path.join(cfg.out_dir, base + "_all_cluster"),
+                        up_cluster[b])
+        if writer is not None:
+            writer.append_many(records)
+        return records
+
+
+class SpalignLabelGenerator(LabelGeneratorBase):
+    """End-to-end label generation over a dataset (reference
+    batch_spalign_kmeans.py main loop :533-548 + estimate_road_mask), on
+    the fused-SLIC path: cfg.superpixel method 'slic' with
+    slic_enforce_connectivity=False."""
+
+    mode = "spalign"
+
+    def __init__(self, cfg: LabelGenConfig, state_dict=None,
+                 model_name: str = "drn_c_26", seed: Optional[int] = None,
+                 device="cuda"):
+        super().__init__(cfg, state_dict=state_dict, model_name=model_name,
+                         seed=seed, device=device)
+        d = cfg.superpixel.slic_device_downscale
+        self._downscale = d
+        self._sp_hw = (cfg.resize_shape[0] // d, cfg.resize_shape[1] // d)
+        self.num_segments = slic_grid_size(
+            *self._sp_hw, cfg.superpixel.n_slic_segments)
+
+    def _validate(self, cfg: LabelGenConfig):
+        super()._validate(cfg)
+        sp = cfg.superpixel
+        if sp.method != "slic" or sp.slic_enforce_connectivity:
+            raise NotImplementedError(
+                "only the device SLIC frontend (method='slic', "
+                "slic_enforce_connectivity=False) is ported; the host "
+                "superpixel engines are not")
 
     def superpixels(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) uint8 -> (B, h, w) int32 SLIC maps, at 1/d of the
@@ -342,60 +621,21 @@ class SpalignLabelGenerator:
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}
 
-    # --- host side ---
-
-    def _next_seed(self) -> np.uint32:
-        return np.uint32(self._seed_rng.randint(0, 2 ** 31))
-
-    def _unit_seeds(self, n_groups: int):
-        return [self._next_seed() for _ in range(n_groups)]
-
-    def _host_prepare(self, images_uint8: np.ndarray) -> dict:
-        """Wire-pack the batch and start its upload: pinned memory and a
-        non-blocking copy on the upload stream (runs on the producer
-        thread, so it overlaps the previous unit's device work)."""
-        images_uint8 = np.ascontiguousarray(images_uint8)
-        host = (pack_yuv420(images_uint8)
-                if self.cfg.upload_format == "yuv420" else images_uint8)
-        host = torch.from_numpy(host)
-        if self._upload_stream is None:
-            return {"wire": host, "host": host, "ready": None}
-        host = host.pin_memory()
-        with torch.cuda.stream(self._upload_stream):
-            wire = host.to(self.device, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record(self._upload_stream)
-        return {"wire": wire, "host": host, "ready": ready}
-
     def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
         """Run the unit's device program; the masks and diagnostics start
         their way to the host (pinned, non-blocking), and ``finish_batch``
         waits for them."""
-        wire = prepared["wire"]
-        if prepared["ready"] is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(prepared["ready"])
-            wire.record_stream(stream)
+        self._wait_ready(prepared)
         seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
         with timers.stage("device_program", self.device):
-            handles = self.run_unit(wire, seeds)
+            handles = self.run_unit(prepared["wire"], seeds)
         res = handles["res"]
         fetch = {"road_packed": handles["road_packed"], "ok": handles["ok"],
                  "n_iter": res.n_iter, "converged": res.converged,
                  "empty_stop": res.empty_stop}
         if self._want_cluster_np:
             fetch["cluster"] = handles["cluster"].to(torch.uint8)
-        if self.device.type == "cuda":
-            host = {}
-            for name, t in fetch.items():
-                host[name] = torch.empty(t.shape, dtype=t.dtype,
-                                         pin_memory=True)
-                host[name].copy_(t, non_blocking=True)
-            landed = torch.cuda.Event()
-            landed.record(torch.cuda.current_stream(self.device))
-        else:
-            host, landed = fetch, None
-        handles["_host"] = (host, landed)
+        handles["_host"] = self._to_host(fetch)
         return handles
 
     def finish_batch(self, prepared: dict, handles: dict,
@@ -409,10 +649,7 @@ class SpalignLabelGenerator:
         retries = 0
         with timers.stage("kmeans"):
             for attempt in range(tries):
-                host, landed = handles["_host"]
-                if landed is not None:
-                    landed.synchronize()
-                got = {name: t.numpy() for name, t in host.items()}
+                got = self._landed(handles)
                 if bool(np.all(got["ok"])) or attempt + 1 >= tries:
                     break
                 retries += 1
@@ -429,150 +666,3 @@ class SpalignLabelGenerator:
             },
         }
         return handles["road"], handles["cluster"], diag
-
-    def run_batch(self, images_uint8: np.ndarray,
-                  timers: Optional[StageTimer] = None):
-        """Synchronous single-batch API: (B, h, w, 3) uint8 RGB at
-        cfg.resize_shape, one clustering group.  Returns (road_masks
-        (B, h, w) bool, cluster_maps int32, diagnostics, StageTimer)."""
-        timers = timers or StageTimer()
-        prepared = self._host_prepare(images_uint8)
-        handles = self.dispatch_batch(prepared, timers)
-        road, cluster, diag = self.finish_batch(prepared, handles, timers)
-        per_group = diag.pop("_per_group")
-        diag.update({k: v[0] for k, v in per_group.items()})
-        return road, cluster, diag, timers
-
-    def process_dataset(self, dataset, start_index: int = 0,
-                        end_index: Optional[int] = None,
-                        save: Optional[bool] = None,
-                        writer: Optional[ResultWriter] = None,
-                        prefetch: int = 2):
-        """Label a dataset of (image uint8 full-res, labelIds or None)
-        pairs in clustering batches, ``groups_per_dispatch`` batches per
-        unit.  One producer thread loads and uploads ``prefetch`` units
-        ahead; ``in_flight`` units are dispatched before the oldest one
-        is finished.  Returns the per-image records."""
-        cfg = self.cfg
-        n = len(dataset)
-        end_index = n if end_index is None else min(end_index, n)
-        save = cfg.save_masks if save is None else save
-        if writer is None and (save or cfg.save_images):
-            writer = ResultWriter(cfg.out_dir)
-        slices = batch_slices(start_index, end_index, cfg.batchsize)
-        groups = max(1, cfg.groups_per_dispatch)
-        units = [slices[x:x + groups] for x in range(0, len(slices), groups)]
-        self._want_cluster_np = bool(save)
-        records = []
-        pending = deque()
-        for item in self._prefetched(dataset, units, prefetch):
-            handles = self.dispatch_batch(item[3], item[4])
-            pending.append((item, handles))
-            if len(pending) > self.in_flight:
-                records.extend(self._finish_loaded(
-                    dataset, *pending.popleft(), save=save, writer=writer))
-        while pending:
-            records.extend(self._finish_loaded(
-                dataset, *pending.popleft(), save=save, writer=writer))
-        return records
-
-    def _load_unit(self, dataset, unit):
-        indices = [idx for (i, j) in unit for idx in range(i, j)]
-        timers = StageTimer()
-        with timers.stage("load"):
-            imgs, labels = _load_batch(dataset, indices,
-                                       self.cfg.resize_shape)
-        with timers.stage("upload"):
-            prepared = self._host_prepare(imgs)
-        prepared["n_groups"] = len(unit)
-        return (indices, imgs, labels, prepared, timers)
-
-    def _prefetched(self, dataset, units, depth):
-        """Yield loaded units in order, ``depth`` ahead on one thread."""
-        if depth <= 0 or len(units) <= 1:
-            for unit in units:
-                yield self._load_unit(dataset, unit)
-            return
-        with ThreadPoolExecutor(max_workers=1) as ex:
-            it = iter(units)
-            futures = deque()
-
-            def submit_next():
-                unit = next(it, None)
-                if unit is not None:
-                    futures.append(ex.submit(self._load_unit, dataset,
-                                             unit))
-
-            for _ in range(depth):
-                submit_next()
-            while futures:
-                item = futures.popleft().result()
-                submit_next()
-                yield item
-
-    def _finish_loaded(self, dataset, item, handles, *, save, writer):
-        cfg = self.cfg
-        indices, imgs, labels, prepared, timers = item
-        road, _, diag = self.finish_batch(prepared, handles, timers)
-        per_group = diag.pop("_per_group")
-        group_size = len(indices) // int(prepared.get("n_groups", 1))
-        got = handles["host"]
-        road_np = unpack_mask_bits(got["road_packed"], road.shape[-1])
-        if labels is not None:
-            with timers.stage("score"):
-                confs = [host_confusion(r, l)
-                         for r, l in zip(road_np, labels)]
-        else:
-            confs = [None] * len(indices)
-        if save:
-            out_hw = (tuple(labels.shape[1:]) if labels is not None
-                      else tuple(road_np.shape[1:]))
-            up_road = nn_resize_np(road_np.astype(np.uint8), out_hw)
-            up_cluster = nn_resize_np(got["cluster"], out_hw)
-            os.makedirs(cfg.out_dir, exist_ok=True)
-        times = timers.finish()
-        cfg_flat = flatten(cfg)
-        records = []
-        for b, idx in enumerate(indices):
-            img_fn = _name(dataset, "image_name", idx)
-            rec = {"img_fn": img_fn,
-                   "label_fn": _name(dataset, "label_name", idx)}
-            if confs[b] is not None:
-                rec.update(_confusion_record(confs[b]))
-            rec.update(cfg_flat)
-            rec.update(times)
-            rec.update(diag)
-            gi = min(b // group_size,
-                     len(next(iter(per_group.values()))) - 1)
-            rec.update({k: v[gi] for k, v in per_group.items()})
-            records.append(rec)
-            if save:
-                base = os.path.splitext(os.path.basename(img_fn))[0]
-                np.save(os.path.join(cfg.out_dir, base), up_road[b])
-                np.save(os.path.join(cfg.out_dir, base + "_all_cluster"),
-                        up_cluster[b])
-        if writer is not None:
-            writer.append_many(records)
-        return records
-
-
-def _validate(cfg: LabelGenConfig):
-    sp = cfg.superpixel
-    if cfg.mode != "spalign":
-        raise NotImplementedError(
-            f"mode={cfg.mode!r}: only the spalign mode is ported")
-    if cfg.kmeans.init != "device":
-        raise NotImplementedError("the bit-parity mode (kmeans.init="
-                                  "'reference') is not ported")
-    if sp.method != "slic" or sp.slic_enforce_connectivity:
-        raise NotImplementedError(
-            "only the device SLIC frontend (method='slic', "
-            "slic_enforce_connectivity=False) is ported; the host "
-            "superpixel engines are not")
-    if cfg.save_images:
-        raise NotImplementedError("diagnostic panels are not ported")
-    if cfg.upload_format not in ("rgb8", "yuv420"):
-        raise ValueError(f"unknown upload_format {cfg.upload_format}")
-    h, w = cfg.resize_shape
-    if cfg.upload_format == "yuv420" and (h % 2 or w % 2):
-        raise ValueError("yuv420 needs even resize_shape")

@@ -3,10 +3,11 @@
 These tests need an NVIDIA GPU with nvcc (marker ``cuda``) and skip
 elsewhere; ``python -m pytest -m cuda --noconftest
 tests/test_torch_cuda.py`` runs them on the card.  Tolerance: none.
-SLIC labels are equal bit for bit (the kernel and its plain version do
-the same integer sums and the same float32 operations in the same
-order); pooled values, codes and gradients are equal bit for bit (each
-is one input element selected by a compare, or zero)."""
+SLIC labels are equal bit for bit (the kernels and their plain versions
+do the same integer sums and the same float32 operations in the same
+order, and so do the two SLIC engines); pooled values, codes and
+gradients are equal bit for bit (each is one input element selected by
+a compare, or zero)."""
 
 import numpy as np
 import pytest
@@ -14,6 +15,7 @@ import torch
 
 from spalign_tpu_torch.kernels import pooling as tpk
 from spalign_tpu_torch.kernels import slic as tslic
+from spalign_tpu_torch.kernels import slic_assign as tsa
 from spalign_tpu_torch.kernels.slic_fused import (slic_lloyd,
                                                   slic_lloyd_reference)
 from spalign_tpu_torch.ops.pooling import max_pool_argmax_2x2, max_unpool_2x2
@@ -68,6 +70,74 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     out = slic_lloyd(lab, c0, **kw)
     assert out.shape == (1, 32 * 32) and out.min() >= 0
     assert np.all(out.cpu().numpy() < c0.shape[1])
+
+
+# ---- the SLIC assignment kernel (csrc/slic_assign.cu) ----
+
+
+@pytest.mark.parametrize("b,h,w,n_seg,case", [
+    (3, 256, 512, 100, "grid"),
+    (2, 250, 333, 100, "ragged"),  # H*W not a multiple of the block
+    (2, 200, 300, 300, "grid"),  # K > 128
+    (2, 96, 130, 40, "empty"),  # every window empty: the fallback
+])
+def test_assign_kernel_equals_plain_version(cuda, b, h, w, n_seg, case):
+    lab, c0, kw = _inputs(cuda, b, h, w, n_seg)
+    kw = {k: v for k, v in kw.items() if k != "n_iter"}
+    if case == "empty":
+        c0 = c0.clone()
+        c0[..., 3] += 10 * h
+    before = tsa.slic_assign.launches
+    got = tsa.slic_assign(lab, c0, **kw)
+    torch.cuda.synchronize()
+    assert tsa.slic_assign.launches == before + 1
+    assert torch.equal(got, tsa.slic_assign_reference(lab, c0, **kw))
+
+
+@pytest.mark.parametrize("b,h,w,n_seg", [(4, 224, 224, 100),
+                                         (3, 96, 130, 40)])
+def test_engines_equal_on_the_card(cuda, b, h, w, n_seg):
+    lab, c0, kw = _inputs(cuda, b, h, w, n_seg)
+    before = tsa.slic_assign.launches
+    sweep = tslic.slic_per_sweep(lab, c0, **kw)
+    assert tsa.slic_assign.launches == before + kw["n_iter"] + 1
+    assert torch.equal(sweep, slic_lloyd(lab, c0, **kw))
+
+
+def test_overlaps_batch_launches_the_assignment_kernel(cuda):
+    """One overlaps batch: n_iter + 1 assignment launches, full-res
+    masks."""
+    from spalign_tpu_torch import config
+    from spalign_tpu_torch.pipeline.direct import make_label_generator
+
+    sp = config.SuperpixelConfig(method="slic", n_slic_segments=40,
+                                 slic_iters=3,
+                                 slic_enforce_connectivity=False)
+    gen = make_label_generator(config.LabelGenConfig(
+        mode="overlaps", batchsize=2, resize_shape=(112, 112),
+        upload_format="yuv420", superpixel=sp, save_masks=False))
+    g = torch.Generator().manual_seed(0)
+    full = (torch.rand((2, 128, 256, 3), generator=g) * 255).to(
+        torch.uint8).numpy()
+    imgs = full[:, :112, :112]
+    before = tsa.slic_assign.launches
+    road, _, diag, _ = gen.run_batch(imgs, full_images=full)
+    torch.cuda.synchronize()
+    assert tsa.slic_assign.launches == before + sp.slic_iters + 1
+    assert road.shape == (2, 128, 256) and road.is_cuda
+    assert diag["n_superpixels"] == [36, 36]
+
+
+def test_assign_never_takes_the_plain_path(cuda, monkeypatch):
+    lab, c0, kw = _inputs(cuda, 2, 64, 96, 40)
+
+    def boom(*a, **k):
+        raise AssertionError("plain version called for CUDA tensors")
+
+    monkeypatch.setattr(tsa, "slic_assign_reference", boom)
+    out = tslic.slic_per_sweep(lab, c0, **kw)
+    assert out.shape == (2, 64 * 96) and int(out.min()) >= 0
+    assert int(out.max()) < c0.shape[1]
 
 
 # ---- the SegNet pooling kernels (csrc/pooling.cu) ----

@@ -6,14 +6,20 @@ import ast
 import inspect
 import pathlib
 
+import numpy as np
 import pytest
 import torch
 
 from spalign_tpu_torch import config
+from spalign_tpu_torch.cli import label_gen as cli_label_gen
 from spalign_tpu_torch.kernels.slic import slic
 from spalign_tpu_torch.models.drn import DRN_FACTORIES
 from spalign_tpu_torch.models.segnet import build_segnet
+from spalign_tpu_torch.pipeline.direct import (DirectLabelGenerator,
+                                               OverlapsLabelGenerator,
+                                               make_label_generator)
 from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 from spalign_tpu_torch.train.evaluator import Evaluator
 from spalign_tpu_torch.train.trainer import Trainer, build_model
 
@@ -50,8 +56,14 @@ def test_no_forbidden_imports(path):
 def test_the_scan_sees_the_whole_package():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"spalign_tpu_torch/kernels/slic_fused.py",
+            "spalign_tpu_torch/kernels/slic_assign.py",
             "spalign_tpu_torch/kernels/pooling.py",
             "spalign_tpu_torch/pipeline/label_gen.py",
+            "spalign_tpu_torch/pipeline/direct.py",
+            "spalign_tpu_torch/pipeline/superpixels.py",
+            "spalign_tpu_torch/eval/results.py",
+            "spalign_tpu_torch/cli/common.py",
+            "spalign_tpu_torch/cli/label_gen.py",
             "spalign_tpu_torch/train/trainer.py",
             "chip_smoke.py"} <= names
 
@@ -61,7 +73,12 @@ def _default(fn, name="device"):
 
 
 def test_entry_points_default_to_cuda():
-    assert _default(SpalignLabelGenerator.__init__) == "cuda"
+    for gen in (SpalignLabelGenerator, DirectLabelGenerator,
+                OverlapsLabelGenerator):
+        assert _default(gen.__init__) == "cuda"
+    assert _default(make_label_generator) == "cuda"
+    assert _default(compute_superpixels) == "cuda"
+    assert cli_label_gen.get_args(["--synthetic", "1"]).device == "cuda"
     assert _default(slic) == "cuda"
     for factory in DRN_FACTORIES.values():
         assert _default(factory) == "cuda"
@@ -76,6 +93,16 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
                                  slic_enforce_connectivity=False)
     with pytest.raises(RuntimeError, match="CUDA"):
         SpalignLabelGenerator(config.LabelGenConfig(superpixel=sp))
+    for mode in ("direct", "overlaps"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_label_generator(config.LabelGenConfig(mode=mode,
+                                                       superpixel=sp))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        compute_superpixels(np.zeros((1, 8, 8, 3), np.uint8), sp)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_label_gen.main(["--mode", "direct", "--synthetic", "1",
+                            "--synthetic_shape", "16", "16",
+                            "--out_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         slic(torch.zeros((1, 8, 8, 3)))
     with pytest.raises(RuntimeError, match="CUDA"):
