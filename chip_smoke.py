@@ -7,12 +7,13 @@ Run from the root of the repository on a machine with one CUDA GPU and
 ``nvcc``.  Phases, one JSON line each on stdout:
 
   device       the card (nvidia-smi name and power limit), CUDA, PyTorch
-  build        nvcc builds of csrc/slic_lloyd.cu and csrc/pooling.cu, run
-               together, and ptxas's resource use per kernel
+  build        nvcc builds of csrc/slic_lloyd.cu, csrc/slic_assign.cu and
+               csrc/pooling.cu, run together, and ptxas's resource use per
+               kernel
   slic_lloyd   the SLIC Lloyd kernel against its plain PyTorch version on
                the inputs the main path gives it (150 x 224^2, 100
-               segments, 10 sweeps): labels must agree on > 0.995 of each
-               image's pixels; times by CUDA events
+               segments, 10 sweeps): labels bit-equal; its cluster size;
+               times by CUDA events
   main_path    SpalignLabelGenerator at the bench configuration (DRN-C-26
                full width in bf16, 5 groups x 30 images per unit, yuv420
                wire, k=4, 10 anchors) over synthetic scenes with ground
@@ -23,11 +24,13 @@ Run from the root of the repository on a machine with one CUDA GPU and
                plain version at the overlaps path's inputs (30 frames at
                1024x2048, K = 98) with the grid centres and with the centres
                after 3 sweeps, at K = 990 on 2 frames, on a ragged H*W and
-               with every window empty: labels bit-equal; kernel, plain, bound
-               and the two centre-update reductions timed; the whole
-               per-sweep SLIC split into its launches and updates; at
-               30 x 512x1024 the per-sweep engine against the Lloyd kernel
-               (labels equal) and both times
+               with every window empty: labels bit-equal and the fused
+               int64 centre sums equal to bincount's; the labelled and the
+               sums-only launch timed beside their plain versions, their
+               bounds and the sums' yardsticks (bincount, index_add_); the
+               whole per-sweep SLIC split into its fused launches, centre
+               updates and final launch; at 30 x 512x1024 the per-sweep
+               engine against the Lloyd kernel (labels equal) and both times
   features     bf16 against float32 DRN features (reported, not gated)
   pooling      the pool, scatter and gather kernels against their plain
                versions at the train step's four level shapes (B = 8,
@@ -52,8 +55,9 @@ Run from the root of the repository on a machine with one CUDA GPU and
                SLIC of the 1024x2048 frames: 100 segments, 10 sweeps) with
                ground truth: a warm-up batch, then 3 timed batches with every
                count set to 0 just before and read just after (11 assignment
-               launches a batch); masks full resolution and not empty; one
-               batch with slic_device_downscale=2 (2x2-block-constant masks)
+               launches a batch, 10 of them sums-only); masks full
+               resolution and not empty; one batch with
+               slic_device_downscale=2 (2x2-block-constant masks)
   direct_path  the direct mode at the bench unit (5 groups x 30 at 224^2,
                yuv420): a warm-up unit, then 3 timed units
   cli          spalign_tpu_torch.cli.label_gen.main in the overlaps mode on
@@ -605,14 +609,14 @@ def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
 
 def per_sweep_split(lab, c0, shape, n_iter):
     """The per-sweep engine's loop (``kernels/slic.py::slic_per_sweep``)
-    with CUDA events around its parts: device milliseconds of the pixel
-    rows, the ``n_iter + 1`` assignment launches, the ``n_iter`` centre
-    updates, and the whole."""
+    with CUDA events around its parts: device milliseconds of the
+    ``n_iter`` fused launches (centre sums, no labels), the ``n_iter``
+    ``centers_from_sums`` updates, the final labelled launch, and the
+    whole."""
     import torch
 
-    from spalign_tpu_torch.kernels.slic_assign import slic_assign
-    from spalign_tpu_torch.kernels.slic_fused import (pixel_rows,
-                                                      update_centers)
+    from spalign_tpu_torch.kernels.slic_assign import (centers_from_sums,
+                                                       slic_assign)
 
     def event():
         e = torch.cuda.Event(enable_timing=True)
@@ -621,52 +625,68 @@ def per_sweep_split(lab, c0, shape, n_iter):
 
     torch.cuda.synchronize()
     start = event()
-    rows = pixel_rows(lab, shape["width"])
-    rows_done = event()
     centers, marks = c0, []
     for _ in range(n_iter):
         a0 = event()
-        labels = slic_assign(lab, centers, **shape)
+        sums = slic_assign(lab, centers, sums=True, **shape)
         a1 = event()
-        centers = update_centers(rows, labels, centers)
+        centers = centers_from_sums(sums, centers)
         marks.append((a0, a1, event()))
     a0 = event()
     slic_assign(lab, centers, **shape)
     end = event()
     end.synchronize()
-    return {"rows_ms": start.elapsed_time(rows_done),
-            "assign_ms": a0.elapsed_time(end) + sum(
-                m[0].elapsed_time(m[1]) for m in marks),
-            "update_ms": sum(m[1].elapsed_time(m[2]) for m in marks),
+    return {"fused_ms": sum(m[0].elapsed_time(m[1]) for m in marks),
+            "centers_from_sums_ms": sum(m[1].elapsed_time(m[2])
+                                        for m in marks),
+            "final_ms": a0.elapsed_time(end),
             "total_ms": start.elapsed_time(end)}
 
 
-def assign_equal(lab, centers, shape):
+def assign_check(lab, centers, shape):
     """Kernel against plain version: max |label difference| (0 when
-    bit-equal), and whether the labels lie in [0, K)."""
+    bit-equal), whether the labels lie in [0, K), and whether the fused
+    int64 sums equal bincount's over the plain labels."""
     import torch
 
-    from spalign_tpu_torch.kernels.slic_assign import (slic_assign,
+    from spalign_tpu_torch.kernels.slic_assign import (center_sums,
+                                                       pixel_rows,
+                                                       slic_assign,
                                                        slic_assign_reference)
 
     got = slic_assign(lab, centers, **shape)
+    sums = slic_assign(lab, centers, sums=True, **shape)
     torch.cuda.synchronize()
     want = slic_assign_reference(lab, centers, **shape)
+    want_sums = center_sums(pixel_rows(lab, shape["width"]), want, centers)
     err = int((got.long() - want.long()).abs().max())
     k = centers.shape[1]
-    return err, bool(((got >= 0) & (got < k)).all())
+    return (err, bool(((got >= 0) & (got < k)).all()),
+            torch.equal(sums, want_sums))
+
+
+def sums_bound_ms(lab, centers, shape):
+    """Least time of one fused-sums launch on an H100: its bytes (lab and
+    the centres read once, the (B, K, 6) int64 sums written once) against
+    its operations (the score of every in-window pair and 6 adds a
+    pixel), as ``assign_bound_ms`` counts them."""
+    b, _, hw = lab.shape
+    n_bytes = (lab.numel() * 4 + centers.numel() * 4
+               + centers.shape[0] * centers.shape[1] * 6 * 8)
+    n_ops = window_pairs(centers, shape) * 10 + b * hw * 6
+    return (*bound_ms(n_bytes, n_ops), n_bytes, n_ops)
 
 
 def slic_assign_phase(frames_full, frames512, sp):
     """The assignment kernel at the overlaps path's inputs, K ~ 1000, a
-    ragged H*W and empty windows; the centre update's two reductions; the
-    whole per-sweep SLIC; the two engines at 30 x 512x1024."""
+    ragged H*W and empty windows, labels and fused sums; the centre sums'
+    yardsticks; the whole per-sweep SLIC and its split;
+    the two engines at 30 x 512x1024."""
     import torch
 
+    from spalign_tpu_torch.kernels import slic_assign as sa
     from spalign_tpu_torch.kernels import slic_fused
     from spalign_tpu_torch.kernels.slic import slic_inputs, slic_per_sweep
-    from spalign_tpu_torch.kernels.slic_assign import (slic_assign,
-                                                       slic_assign_reference)
     from spalign_tpu_torch.pipeline.wire import decode_yuv420, pack_yuv420
 
     dev = torch.device("cuda")
@@ -676,22 +696,35 @@ def slic_assign_phase(frames_full, frames512, sp):
     del wire
     lab, c0, shape = slic_inputs(images, seg, comp)
     k = c0.shape[1]
-    rows = slic_fused.pixel_rows(lab, shape["width"])
-    c3 = c0
-    for _ in range(3):
-        c3 = slic_fused.update_centers(rows, slic_assign(lab, c3, **shape),
-                                       c3)
-    errs = {"grid": assign_equal(lab, c0, shape),
-            "after_3_sweeps": assign_equal(lab, c3, shape)}
-    kernel_ms, kernel_runs = cuda_ms(lambda: slic_assign(lab, c3, **shape),
+
+    def sweeps(c, n, kw):
+        for _ in range(n):
+            c = sa.centers_from_sums(sa.slic_assign(lab, c, sums=True, **kw),
+                                     c)
+        return c
+
+    c3 = sweeps(c0, 3, shape)
+    checks = {"grid": assign_check(lab, c0, shape),
+              "after_3_sweeps": assign_check(lab, c3, shape)}
+    kernel_ms, kernel_runs = cuda_ms(lambda: sa.slic_assign(lab, c3, **shape),
                                      reps=20)
+    sums_ms, sums_runs = cuda_ms(
+        lambda: sa.slic_assign(lab, c3, sums=True, **shape), reps=20)
     plain_ms, _ = cuda_ms(
-        lambda: slic_assign_reference(lab, c3, **shape), reps=3, warmup=1)
+        lambda: sa.slic_assign_reference(lab, c3, **shape), reps=3, warmup=1)
     least_ms, bound_by, n_bytes, n_ops = assign_bound_ms(lab, c3, shape)
-    labels = slic_assign(lab, c3, **shape)
-    rows = slic_fused.pixel_rows(lab, shape["width"])
-    # the same integer sums by index_add_ over int64, the alternative
-    # reduction, timed beside update_centers' bincount as a yardstick
+    sums_least_ms, sums_by, sums_bytes, sums_ops = sums_bound_ms(lab, c3,
+                                                                 shape)
+    labels = sa.slic_assign(lab, c3, **shape)
+    rows = sa.pixel_rows(lab, shape["width"])
+    sums = sa.slic_assign(lab, c3, sums=True, **shape)
+    # the same integer sums by bincount over float64 (center_sums, the
+    # plain version) and by index_add_ over int64: yardsticks of the
+    # fused sums
+    plain_sums_ms, _ = cuda_ms(
+        lambda: sa.center_sums(rows, sa.slic_assign_reference(lab, c3,
+                                                              **shape), c3),
+        reps=3, warmup=1)
     slots = len(c3) * k
     rows_i64 = rows.to(torch.int64)
     ids = (labels.long() + (torch.arange(len(c3), device=dev) * k)[:, None]
@@ -702,16 +735,20 @@ def slic_assign_phase(frames_full, frames512, sp):
                            device=dev).index_add_(1, ids, rows_i64)
 
     update = {
-        "bincount_float64": cuda_ms(lambda: slic_fused.update_centers(
-            rows, labels, c3), reps=10)[0],
-        "index_add_int64": cuda_ms(index_add, reps=10)[0]}
-    same_sums = torch.equal(index_add(), torch.stack([
-        torch.bincount(ids, weights=r, minlength=slots)
-        for r in rows]).to(torch.int64))
-    del rows, rows_i64, ids
+        "bincount_float64": cuda_ms(lambda: sa.center_sums(rows, labels, c3),
+                                    reps=10)[0],
+        "index_add_int64": cuda_ms(index_add, reps=10)[0],
+        "centers_from_sums": cuda_ms(lambda: sa.centers_from_sums(sums, c3),
+                                     reps=20)[0]}
+    same_sums = (torch.equal(index_add().T.reshape(len(c3), k, 6), sums)
+                 and torch.equal(sa.center_sums(rows, labels, c3), sums))
+    del rows, rows_i64, ids, sums
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     split = per_sweep_split(lab, c0, shape, n_iter)
     slic_ms, _ = cuda_ms(lambda: slic_per_sweep(lab, c0, n_iter=n_iter,
                                                 **shape), reps=3, warmup=1)
+    slic_peak = torch.cuda.max_memory_allocated()
     del lab, c0, c3, labels, images
     torch.cuda.empty_cache()
 
@@ -720,16 +757,13 @@ def slic_assign_phase(frames_full, frames512, sp):
     lab, c0, kshape = slic_inputs(images, 1000, comp)
     far = c0.clone()
     far[..., 3] += 10 * kshape["height"]
-    rows = slic_fused.pixel_rows(lab, kshape["width"])
-    c2 = c0
-    for _ in range(2):
-        c2 = slic_fused.update_centers(rows, slic_assign(lab, c2, **kshape),
-                                       c2)
-    errs.update({"k990_ragged_grid": assign_equal(lab, c0, kshape),
-                 "k990_ragged_after_2_sweeps": assign_equal(lab, c2, kshape),
-                 "empty_windows": assign_equal(lab, far, kshape)})
+    c2 = sweeps(c0, 2, kshape)
+    checks.update({"k990_ragged_grid": assign_check(lab, c0, kshape),
+                   "k990_ragged_after_2_sweeps": assign_check(lab, c2,
+                                                              kshape),
+                   "empty_windows": assign_check(lab, far, kshape)})
     k990 = c0.shape[1]
-    del lab, c0, c2, far, rows, images
+    del lab, c0, c2, far, images
     torch.cuda.empty_cache()
 
     # the two engines where the Lloyd kernel takes the shape
@@ -742,32 +776,45 @@ def slic_assign_phase(frames_full, frames512, sp):
         lab, c0, n_iter=n_iter, **shape512), reps=5)
     sweep_ms, _ = cuda_ms(lambda: slic_per_sweep(
         lab, c0, n_iter=n_iter, **shape512), reps=5)
+    lloyd_least, lloyd_by = lloyd_bound_ms(lab, c0, shape512, n_iter)[:2]
+    cluster = slic_fused.cluster_size(30, shape512["height"],
+                                      shape512["width"])
     del lab, c0, lloyd, sweep, images
     torch.cuda.empty_cache()
 
     out = {"phase": "slic_assign", "images": len(frames_full),
            "hw": list(FULL_HW), "centres": k, "k990_centres": k990,
-           "k990_hw": [1000, 1998],
-           "max_abs_err": {n: e for n, (e, _) in errs.items()},
-           "labels_in_range": {n: r for n, (_, r) in errs.items()},
+           "k990_hw": [1000, 1998], "strip": list(sa.STRIP),
+           "max_abs_err": {n: c[0] for n, c in checks.items()},
+           "labels_in_range": {n: c[1] for n, c in checks.items()},
+           "sums_equal": {n: c[2] for n, c in checks.items()},
            "kernel_ms": kernel_ms, "kernel_runs_ms": kernel_runs,
            "plain_ms": plain_ms, "bound_ms": least_ms,
            "bound_by": bound_by, "bytes": n_bytes, "operations": n_ops,
+           "sums_ms": sums_ms, "sums_runs_ms": sums_runs,
+           "sums_plain_ms": plain_sums_ms,
+           "sums_bound_ms": sums_least_ms, "sums_bound_by": sums_by,
+           "sums_bytes": sums_bytes, "sums_operations": sums_ops,
            "window_pairs_per_pixel": n_ops / 10 / (len(frames_full)
                                                    * FULL_HW[0] * FULL_HW[1]),
            "update_ms": update, "update_reductions_equal": same_sums,
            "per_sweep_slic_ms": slic_ms,
            "per_sweep_split_ms": split,
+           "per_sweep_peak_memory_bytes": slic_peak,
            "engines_512x1024": {"images": 30, "max_abs_err": engines_err,
                                 "lloyd_ms": lloyd_ms,
+                                "lloyd_bound_ms": lloyd_least,
+                                "lloyd_bound_by": lloyd_by,
+                                "lloyd_cluster": cluster,
                                 "per_sweep_ms": sweep_ms}}
     emit(out)
-    for name, (err, in_range) in errs.items():
+    for name, (err, in_range, sums_equal) in checks.items():
         check(err == 0, f"slic_assign bit-equal to its plain version: "
                         f"{name}")
         check(in_range, f"slic_assign labels in [0, K): {name}")
+        check(sums_equal, f"fused sums equal bincount's: {name}")
     check(engines_err == 0, "per-sweep engine equals the Lloyd kernel")
-    check(same_sums, "index_add_ and bincount give the same centre sums")
+    check(same_sums, "fused, index_add_ and bincount sums agree")
     return out
 
 
@@ -776,6 +823,7 @@ def reset_counts():
 
     slic_fused.slic_lloyd.launches = 0
     slic_assign.slic_assign.launches = 0
+    slic_assign.slic_assign.sums_launches = 0
     pooling.reset_launches()
 
 
@@ -784,6 +832,7 @@ def read_counts():
 
     return {"slic_lloyd": slic_fused.slic_lloyd.launches,
             "slic_assign": slic_assign.slic_assign.launches,
+            "slic_assign_sums": slic_assign.slic_assign.sums_launches,
             "pool2x2": pooling.pool2x2.launches,
             "scatter2x2": pooling.scatter2x2.launches,
             "gather2x2": pooling.gather2x2.launches}
@@ -856,8 +905,9 @@ def overlaps_phase(frames_full, labels_full):
            "downscale2_block_constant": bool(torch.equal(road2, block))}
     emit(out)
     check(len(records) == OVERLAPS_BATCHES * n, "one record per image")
-    check(counts["slic_assign"] == 11 * OVERLAPS_BATCHES,
-          f"11 assignment launches a batch, got {counts}")
+    check(counts["slic_assign"] == 11 * OVERLAPS_BATCHES
+          and counts["slic_assign_sums"] == 10 * OVERLAPS_BATCHES,
+          f"11 assignment launches a batch, 10 sums-only, got {counts}")
     check(min(predicted) > 0, "no all-empty road mask")
     check(all(np.isfinite(ious)), "finite road IoU")
     check(road_shape == [n, *FULL_HW], "full-resolution masks")
@@ -979,7 +1029,6 @@ def main() -> int:
     want = slic_fused.slic_lloyd_reference(lab, c0, **kw)
     torch.cuda.synchronize()
     k = c0.shape[1]
-    agreement = (got == want).float().mean(1)
     max_abs_err = int((got.long() - want.long()).abs().max())
     in_range = bool(((got >= 0) & (got < k)).all())
     kernel_ms, kernel_runs = cuda_ms(
@@ -991,15 +1040,15 @@ def main() -> int:
         lab, c0, shape, sp.slic_iters)
     lloyd = {"phase": "slic_lloyd", "images": UNIT,
              "hw": list(cfg.resize_shape), "centres": k,
-             "sweeps": sp.slic_iters,
-             "min_image_agreement": float(agreement.min()),
+             "sweeps": sp.slic_iters, "strip": list(slic_assign.STRIP),
+             "cluster": slic_fused.cluster_size(UNIT, *cfg.resize_shape),
              "max_abs_err": max_abs_err, "labels_in_range": in_range,
              "kernel_ms": kernel_ms, "kernel_runs_ms": kernel_runs,
              "plain_ms": plain_ms, "bound_ms": lloyd_ms,
              "bound_by": lloyd_by, "bytes": n_bytes, "operations": n_ops,
              "scene_seconds": round(t_scenes, 3)}
     emit(lloyd)
-    check(float(agreement.min()) > 0.995, "kernel/plain label agreement")
+    check(max_abs_err == 0, "Lloyd kernel bit-equal to its plain version")
     check(in_range, "labels in [0, K)")
 
     # --- the assignment kernel at the overlaps path's inputs
@@ -1072,22 +1121,41 @@ def main() -> int:
     train_launches = train_phase(cfg, frames, frames512, labels,
                                  pool_summary)
 
+    # slic_assign launches in two forms on the overlaps path (labels once a
+    # batch, sums-only n_iter times): its ms, plain_ms and bound_ms are
+    # means over the path's launches, each form weighted by its count
+    n_sums = overlaps["launches"]["slic_assign_sums"]
+    n_labels = overlaps["launches"]["slic_assign"] - n_sums
+
+    def per_launch(labels_key, sums_key):
+        return ((n_labels * assign[labels_key] + n_sums * assign[sums_key])
+                / (n_labels + n_sums))
+
     kernels = [{
         "name": "slic_lloyd", "route": "cuda",
         "source": "spalign_tpu_torch/csrc/slic_lloyd.cu",
         "replaces": "spalign_tpu/kernels/slic_fused.py:52",
         "launches": launches, "max_abs_err": max_abs_err,
-        "agreement": float(agreement.min()),
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": lloyd_ms, "bound_by": lloyd_by, "library_ms": None}, {
         "name": "slic_assign", "route": "cuda",
         "source": "spalign_tpu_torch/csrc/slic_assign.cu",
         "replaces": "spalign_tpu/kernels/experimental/slic_pallas.py:32",
-        "launches": overlaps["launches"]["slic_assign"],
+        "launches": n_labels + n_sums,
         "max_abs_err": max(assign["max_abs_err"].values()),
-        "ms": assign["kernel_ms"], "kernel_ms": assign["kernel_ms"],
-        "plain_ms": assign["plain_ms"], "bound_ms": assign["bound_ms"],
-        "bound_by": assign["bound_by"], "library_ms": None}]
+        "ms": per_launch("kernel_ms", "sums_ms"),
+        "plain_ms": per_launch("plain_ms", "sums_plain_ms"),
+        "bound_ms": per_launch("bound_ms", "sums_bound_ms"),
+        "bound_by": (assign["sums_bound_by"] if n_sums >= n_labels
+                     else assign["bound_by"]),
+        "library_ms": None,
+        "labels_launches": n_labels, "labels_ms": assign["kernel_ms"],
+        "labels_plain_ms": assign["plain_ms"],
+        "labels_bound_ms": assign["bound_ms"],
+        "sums_launches": n_sums, "sums_ms": assign["sums_ms"],
+        "sums_plain_ms": assign["sums_plain_ms"],
+        "sums_bound_ms": assign["sums_bound_ms"],
+        "bincount_ms": assign["update_ms"]["bincount_float64"]}]
     # pooling: sums over the train step's four float32 levels (one
     # launch of the kernel at each), launches over the timed steps
     for name, v in pool_summary.items():

@@ -1,4 +1,5 @@
-// One SLIC assignment step for Hopper (sm_90a), a batch of images per launch.
+// One SLIC assignment step for Hopper (sm_90a), a batch of images per
+// launch, with the next centre update's sums fused into the same pass.
 //
 // Replaces the TPU kernel
 // spalign_tpu/kernels/experimental/slic_pallas.py::_assign_kernel (reached
@@ -14,135 +15,173 @@
 // The score and |c|^2/2 use float32 operations without contraction
 // (__fmul_rn, __fadd_rn) in the order of slic_lloyd.cu and of the plain
 // PyTorch version, so one sweep of the per-sweep engine (this kernel plus
-// the shared fixed-point centre update) equals one sweep of the Lloyd
-// kernel bit for bit.
+// centers_from_sums) equals one sweep of the Lloyd kernel bit for bit.
 //
-// Layout.  lab is planar (B, 3, HW) float32, as for slic_lloyd.cu: thread t
-// of a block reads element p of each plane, so a warp loads 128 contiguous
-// bytes per plane, and y, x, y*r, x*r are computed from p instead of being
-// read (12 bytes a pixel; the TPU kernel read 32-byte packed rows padded to
-// 2,048-pixel tiles, with filler pixels and -1e9 pad centres for Mosaic's
-// (8, 128) tiling -- none of that is carried over: the kernel masks the
-// ragged last block itself).  centers is (B, K, 5) float32 rows
-// L, a, b, y, x with K <= 1024; labels (B, HW) int32.
+// Outputs, either or both: labels (B, HW) int32, and sums (B, K, 6) int64,
+// zeroed by the caller, to which the launch adds each centre's members'
+// round(L * 2^16), round(a * 2^16), round(b * 2^16), y, x and count.  The
+// n_iter updating sweeps of the per-sweep engine ask for the sums only, so
+// they read 12 bytes a pixel and write no labels; the final sweep asks for
+// the labels only.  Integer sums do not depend on the order of the
+// atomics, so they equal the plain version's (bincount over float64, exact
+// below 2^53) bit for bit.  64 bits even for y and x: a full-resolution
+// frame's coordinate sums pass 2^31.
 //
-// Design (simple, right first).  The grid is (ceil(HW / 256), B): one thread
-// per pixel, so any HW and any batch fill the card.  Each block stages its
-// image's K centres in dynamic shared memory -- raw y and x for the window
-// test, L, a, b, y*r, x*r and |c|^2/2 for the score, 32 bytes a centre, at
-// most 32 KB -- and each thread scans all K with the window test, scoring
-// only the centres in its window.
+// Layout.  lab is planar (B, 3, HW) float32: the lanes of a warp read 32
+// neighbouring pixels of one tile row from each plane, and y, x, y*r, x*r
+// are computed from the pixel's position (12 bytes a pixel).  centers is
+// (B, K, 5) float32 rows L, a, b, y, x with K <= 1024.
 //
-// What bounds it on this card.  The least work is bytes: 12 bytes read and
-// 4 written a pixel against ~10 float32 operations for each of the ~9-16
-// centres in the window.  This first design spends most of its instructions
-// on the window test over all K centres, which the bound does not count.
-// Later work, a redesign: scan only the 5 x 5 neighbouring grid cells'
-// centres, and fuse the centre sums of the next update into this pass.
+// Design.  The grid is (tiles, B): one block of 256 threads per 32 x 32
+// tile of one image (slic_tile.cuh), the ragged edge masked.  The block
+// stages the image's K centres in shared memory (32 bytes a centre, as two
+// float4 rows); each warp then scans its strip of 4 rows against the
+// strip's candidate centres only (slic_tile.cuh: ~18 of the 98 centres of
+// a full-resolution frame), each lane its 4 pixels of one column at once.
+// This replaces the all-K window test of one thread per pixel.  The sums:
+// lanes of a warp-row that chose the same centre are summed first
+// (__reduce_add_sync) into the registers of the lane that owns the
+// centre's slot; at the end of the strip each such lane adds its sums to
+// the block's per-centre sums in shared memory (32-bit atomics, L, a, b
+// as carried lo/hi pairs), and at the end of the block one 64-bit global
+// atomicAdd per non-empty centre and field carries them out.  The 2,940
+// sums of a 30-frame batch see little contention: a centre's members span
+// ~30 blocks.  Per-tile partials reduced in a second launch were not
+// needed.
+//
+// What bounds it on this card.  Bytes: 12 read a pixel, plus 4 written
+// when the labels are asked for, against ~10 float32 operations for each
+// of the ~13 centres in a pixel's window.  Above that bound is what the
+// bound does not count: the exact window test of the candidates outside a
+// pixel's window, the score's unfused float32 operations one instruction
+// each, and, with the sums, the warp reductions of each warp-row's groups
+// (measured: they cost more than the atomics; PERF.md).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "slic_tile.cuh"
+
 namespace {
 
-constexpr int kMaxCenters = 1024;
-constexpr int kThreads = 256;
-constexpr int kCenterFloats = 8;  // y, x, L, a, b, y*r, x*r, |c|^2/2
+using slic::kThreads;
+using slic::kTileH;
 
-// f32 score p.c - |c|^2/2 in a fixed order, each operation rounded
-__device__ __forceinline__ float score(float cl, float ca, float cb,
-                                       float cyr, float cxr, float chalf,
-                                       float l, float a, float b, float yr,
-                                       float xr) {
-  float s = __fadd_rn(__fmul_rn(cl, l), __fmul_rn(ca, a));
-  s = __fadd_rn(s, __fmul_rn(cb, b));
-  s = __fadd_rn(s, __fmul_rn(cyr, yr));
-  s = __fadd_rn(s, __fmul_rn(cxr, xr));
-  return __fsub_rn(s, chalf);
+constexpr int kMaxCenters = 1024;
+constexpr int kMaxSide = 1 << 20;  // a block's y and x sums fit 32 bits
+constexpr int kFields = 6;         // L, a, b (fixed point), y, x, count
+constexpr int kWords = 9;          // L, a, b as lo/hi pairs; y, x, count
+
+// dynamic shared memory: [pos, feat: the K centres, float4 each] [acc:
+// 9 x K u32, the block's sums per centre, only with sums]
+size_t shared_bytes(int n_centers, bool with_sums) {
+  return 2 * sizeof(float4) * n_centers +
+         (with_sums ? sizeof(unsigned) * kWords * n_centers : 0);
 }
 
-__device__ __forceinline__ float half_norm2(float l, float a, float b,
-                                            float yr, float xr) {
-  float s = __fadd_rn(__fmul_rn(l, l), __fmul_rn(a, a));
-  s = __fadd_rn(s, __fmul_rn(b, b));
-  s = __fadd_rn(s, __fmul_rn(yr, yr));
-  s = __fadd_rn(s, __fmul_rn(xr, xr));
-  return __fmul_rn(0.5f, s);
+__device__ __forceinline__ void add_global(long long* dst, long long v) {
+  atomicAdd(reinterpret_cast<unsigned long long*>(dst),
+            (unsigned long long)v);
 }
 
 __global__ void __launch_bounds__(kThreads)
 slic_assign_kernel(const float* __restrict__ lab,
                    const float* __restrict__ centers,
-                   int32_t* __restrict__ labels, int height, int width,
-                   int n_centers, float ratio, float window) {
-  extern __shared__ float smem[];
-  float* c_y = smem;
-  float* c_x = c_y + n_centers;
-  float* c_l = c_x + n_centers;
-  float* c_a = c_l + n_centers;
-  float* c_b = c_a + n_centers;
-  float* c_yr = c_b + n_centers;
-  float* c_xr = c_yr + n_centers;
-  float* c_half = c_xr + n_centers;
+                   int32_t* __restrict__ labels, long long* __restrict__ sums,
+                   int height, int width, int n_centers, float ratio,
+                   float window, int tiles_x) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int n_k = n_centers;
+  float4* pos = reinterpret_cast<float4*>(smem);
+  float4* feat = pos + n_k;
+  unsigned* acc = reinterpret_cast<unsigned*>(feat + n_k);
 
   const int img = blockIdx.y;
   const int hw = height * width;
-  const float* cimg = centers + (size_t)img * n_centers * 5;
-  for (int k = threadIdx.x; k < n_centers; k += kThreads) {
+  const int tid = threadIdx.x;
+  const float* cimg = centers + (size_t)img * n_k * 5;
+  for (int k = tid; k < n_k; k += kThreads) {
     const float* c = cimg + (size_t)k * 5;
-    const float l = c[0], a = c[1], b = c[2], y = c[3], x = c[4];
-    const float yr = __fmul_rn(y, ratio), xr = __fmul_rn(x, ratio);
-    c_y[k] = y; c_x[k] = x;
-    c_l[k] = l; c_a[k] = a; c_b[k] = b;
-    c_yr[k] = yr; c_xr[k] = xr;
-    c_half[k] = half_norm2(l, a, b, yr, xr);
+    slic::set_center(c[0], c[1], c[2], c[3], c[4], ratio, &pos[k],
+                     &feat[k]);
+  }
+  if (sums != nullptr) {
+    for (int i = tid; i < kWords * n_k; i += kThreads) acc[i] = 0u;
   }
   __syncthreads();
 
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= hw) return;  // the ragged last block
+  const int y0 =
+      (blockIdx.x / tiles_x) * kTileH + (tid >> 5) * slic::kStripRows;
+  const int x0 = (blockIdx.x % tiles_x) * slic::kTileW;
   const float* p_l = lab + (size_t)img * 3 * hw;
-  const float l = p_l[p], a = p_l[hw + p], b = p_l[2 * hw + p];
-  const int py = p / width;
-  const int px = p - py * width;
-  const float fy = (float)py, fx = (float)px;
-  const float yr = __fmul_rn(fy, ratio), xr = __fmul_rn(fx, ratio);
-  int best = -1;
-  float best_s = -INFINITY;
-  for (int k = 0; k < n_centers; ++k) {
-    if (fabsf(fy - c_y[k]) <= window && fabsf(fx - c_x[k]) <= window) {
-      const float s = score(c_l[k], c_a[k], c_b[k], c_yr[k], c_xr[k],
-                            c_half[k], l, a, b, yr, xr);
-      if (s > best_s) { best_s = s; best = k; }
-    }
+  int32_t* out = labels != nullptr ? labels + (size_t)img * hw : nullptr;
+  if (sums == nullptr) {
+    auto none = [](int, const slic::Sums&) {};
+    slic::scan_strip<false>(pos, feat, n_k, p_l, hw, height, width, y0, x0,
+                            ratio, window, out, none, none);
+    return;
   }
-  if (best < 0) {  // empty window: unmasked argmax
-    for (int k = 0; k < n_centers; ++k) {
-      const float s = score(c_l[k], c_a[k], c_b[k], c_yr[k], c_xr[k],
-                            c_half[k], l, a, b, yr, xr);
-      if (s > best_s) { best_s = s; best = k; }
-    }
+  // a strip's slot sums go to the block's per-centre sums in shared
+  // memory; a centre without a register slot goes to the global sums
+  long long* img_sums = sums + (size_t)img * n_k * kFields;
+  auto flush = [&](int k, const slic::Sums& g) {
+    slic::add_split(&acc[k], &acc[n_k + k], g.l);
+    slic::add_split(&acc[2 * n_k + k], &acc[3 * n_k + k], g.a);
+    slic::add_split(&acc[4 * n_k + k], &acc[5 * n_k + k], g.b);
+    atomicAdd(&acc[6 * n_k + k], g.y);
+    atomicAdd(&acc[7 * n_k + k], g.x);
+    atomicAdd(&acc[8 * n_k + k], g.n);
+  };
+  auto spill = [&](int k, const slic::Sums& g) {
+    long long* dst = img_sums + (size_t)k * kFields;
+    add_global(dst, g.l); add_global(dst + 1, g.a);
+    add_global(dst + 2, g.b); add_global(dst + 3, g.y);
+    add_global(dst + 4, g.x); add_global(dst + 5, g.n);
+  };
+  slic::scan_strip<true>(pos, feat, n_k, p_l, hw, height, width, y0, x0,
+                         ratio, window, out, spill, flush);
+  __syncthreads();
+  for (int k = tid; k < n_k; k += kThreads) {
+    if (acc[8 * n_k + k] == 0u) continue;
+    long long* dst = img_sums + (size_t)k * kFields;
+    add_global(dst, slic::join_split(acc[k], acc[n_k + k]));
+    add_global(dst + 1, slic::join_split(acc[2 * n_k + k], acc[3 * n_k + k]));
+    add_global(dst + 2, slic::join_split(acc[4 * n_k + k], acc[5 * n_k + k]));
+    add_global(dst + 3, acc[6 * n_k + k]);
+    add_global(dst + 4, acc[7 * n_k + k]);
+    add_global(dst + 5, acc[8 * n_k + k]);
   }
-  labels[(size_t)img * hw + p] = best;
 }
 
 }  // namespace
 
-// Launch on `stream` (a cudaStream_t passed as a pointer).  Allocates
-// nothing; returns cudaGetLastError() after the launch (0 on success).
+// Launch on `stream` (a cudaStream_t passed as a pointer).  labels or sums
+// may be null, not both; sums must be zeroed.  Height and width at most
+// 2^20.  Allocates nothing; returns cudaGetLastError() after the launch (0
+// on success).
 extern "C" int spalign_slic_assign(const float* lab, const float* centers,
-                                   int32_t* labels, int n_images, int height,
-                                   int width, int n_centers, float ratio,
-                                   float window, void* stream) {
+                                   int32_t* labels, long long* sums,
+                                   int n_images, int height, int width,
+                                   int n_centers, float ratio, float window,
+                                   void* stream) {
   if (n_images <= 0 || n_images > 65535 || height <= 0 || width <= 0 ||
-      n_centers <= 0 || n_centers > kMaxCenters ||
-      (long long)height * width > 0x7fffffffLL - kThreads)
+      height > kMaxSide || width > kMaxSide || n_centers <= 0 ||
+      n_centers > kMaxCenters || (long long)height * width > 0x7fffffffLL ||
+      (labels == nullptr && sums == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int hw = height * width;
-  const dim3 grid((hw + kThreads - 1) / kThreads, n_images);
-  const size_t shared = sizeof(float) * kCenterFloats * n_centers;
+  const int tiles_x = (width + slic::kTileW - 1) / slic::kTileW;
+  const int tiles_y = (height + kTileH - 1) / kTileH;
+  const size_t shared = shared_bytes(n_centers, sums != nullptr);
+  if (shared > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        slic_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)shared);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid(tiles_x * tiles_y, n_images);
   slic_assign_kernel<<<grid, kThreads, shared, (cudaStream_t)stream>>>(
-      lab, centers, labels, height, width, n_centers, ratio, window);
+      lab, centers, labels, sums, height, width, n_centers, ratio, window,
+      tiles_x);
   return (int)cudaGetLastError();
 }

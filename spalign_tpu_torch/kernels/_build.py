@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``spalign_tpu_torch/_build/`` at
 first use, then loaded with ``ctypes``.  A source without PyTorch's
 headers compiles in seconds.  The library's file name carries a hash of
-the source and flags, so an edited source is rebuilt.  A failed build
-raises: there is no fallback to the plain PyTorch version.
+the source, the ``csrc/`` headers it includes (``#include "..."``, and
+theirs) and the flags, so an edited source or header is rebuilt.  A
+failed build raises: there is no fallback to the plain PyTorch version.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -24,6 +26,20 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> list:
+    """The ``csrc/`` headers ``source`` includes with quotes, and those
+    they include, each once, in the order first reached."""
+    found, todo = [], [source]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop(0).read_text()):
+            path = CSRC_DIR / name
+            if path not in found:
+                found.append(path)
+                todo.append(path)
+    return found
 
 
 def find_nvcc() -> str:
@@ -58,8 +74,10 @@ class CudaLibrary:
         self._lock = threading.Lock()
 
     def _build(self) -> Path:
+        headers = b"".join(p.read_bytes()
+                           for p in local_headers(self.source))
         digest = hashlib.sha256(
-            self.source.read_bytes() + " ".join(NVCC_FLAGS).encode()
+            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
         ).hexdigest()[:16]
         out = BUILD_DIR / f"lib{self.name}-{digest}.so"
         log = out.with_suffix(".log")

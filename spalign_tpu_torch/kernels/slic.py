@@ -10,13 +10,21 @@ to the unmasked argmax.  Labels are not guaranteed 4-connected.
 Two engines compute the same labels (the counterpart of JAX's
 ``slic(use_fused=...)`` and ``slic(use_pallas=...)``):
 
-  * ``"lloyd"``: the whole Lloyd loop in one kernel, one block per image
-    (``csrc/slic_lloyd.cu``): K <= 128 and H*W*max(H, W) < 2^32;
-  * ``"assign"``: the per-sweep loop -- the assignment kernel
-    (``csrc/slic_assign.cu``) launched ``n_iter + 1`` times over tiles of
-    pixels, with the shared fixed-point centre update between launches:
-    any K <= 1024 and H*W < 2^27, the size of the full-resolution frames
-    of the overlaps mode.
+  * ``"lloyd"``: the whole Lloyd loop in one kernel
+    (``csrc/slic_lloyd.cu``), each image on a thread-block cluster whose
+    CTAs share the centre sums through distributed shared memory: K <= 128
+    and H*W*max(H, W) < 2^32;
+  * ``"assign"``: the per-sweep loop -- ``n_iter`` launches of the
+    assignment kernel (``csrc/slic_assign.cu``) that return only the next
+    update's integer centre sums, each followed by ``centers_from_sums``
+    on the B*K sums, then one launch that writes the labels: any K <= 1024
+    and H*W < 2^27, the size of the full-resolution frames of the overlaps
+    mode.  Nothing of size H*W but the labels is made on the card.
+
+Both kernels score a pixel only against its strip's candidate centres (a
+strip is 4 rows by 32 columns), the centres that lie within the window of
+some pixel of the strip (``slic_assign.tile_candidates``), and keep the
+labels of the all-K scan.
 """
 
 from __future__ import annotations
@@ -24,9 +32,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spalign_tpu_torch.kernels.slic_assign import slic_assign
-from spalign_tpu_torch.kernels.slic_fused import (pixel_rows, slic_lloyd,
-                                                  update_centers)
+from spalign_tpu_torch.kernels.slic_assign import (centers_from_sums,
+                                                   slic_assign)
+from spalign_tpu_torch.kernels.slic_fused import slic_lloyd
 from spalign_tpu_torch.utils.device import resolve_device
 
 
@@ -103,18 +111,18 @@ def slic_per_sweep(lab: torch.Tensor, c0: torch.Tensor, *, height: int,
                    width: int, n_iter: int, ratio: float,
                    window: float) -> torch.Tensor:
     """The per-sweep Lloyd loop (JAX ``kernels/slic.py:171-190``):
-    ``n_iter`` times an assignment then the centre update, then a final
-    assignment.  Same inputs and labels as ``slic_lloyd``."""
+    ``n_iter`` times an assignment that returns the centre sums, then the
+    centre update from them, then a final assignment that returns the
+    labels.  Same inputs and labels as ``slic_lloyd``."""
     if height * width >= MAX_SWEEP_PIXELS:
         raise ValueError(f"image {height}x{width} too large")
     if n_iter < 0:
         raise ValueError(f"n_iter={n_iter} must be >= 0")
     shape = dict(height=height, width=width, ratio=ratio, window=window)
-    rows = pixel_rows(lab, width)
     centers = c0
     for _ in range(n_iter):
-        centers = update_centers(rows, slic_assign(lab, centers, **shape),
-                                 centers)
+        centers = centers_from_sums(
+            slic_assign(lab, centers, sums=True, **shape), centers)
     return slic_assign(lab, centers, **shape)
 
 

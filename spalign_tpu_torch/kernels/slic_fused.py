@@ -2,7 +2,8 @@
 
 Counterpart of ``spalign_tpu/kernels/slic_fused.py`` (the Pallas
 ``_lloyd_kernel``).  ``slic_lloyd`` launches ``csrc/slic_lloyd.cu`` for
-CUDA tensors and runs ``slic_lloyd_reference`` only for CPU tensors.
+CUDA tensors, one thread-block cluster per image (``cluster_size``), and
+runs ``slic_lloyd_reference`` only for CPU tensors.
 
 Inputs (both versions):
   lab: (B, 3, H*W) float32 planar CIELAB (L, a, b planes).
@@ -21,19 +22,24 @@ scaled copies are ``mean * ratio``.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from spalign_tpu_torch.kernels._build import CudaLibrary
 from spalign_tpu_torch.kernels.slic_assign import (check_inputs,
-                                                   slic_assign_reference)
+                                                   pixel_rows,
+                                                   slic_assign_reference,
+                                                   update_centers)
 
 MAX_CENTERS = 128
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = CudaLibrary("slic_lloyd", {
-    # (lab, c0, labels, B, H, W, K, n_iter, ratio, window, stream)
+    # (B, H, W) -> CTAs per image
+    "spalign_slic_lloyd_cluster": (ctypes.c_int, [_I, _I, _I]),
+    # (lab, c0, labels, B, H, W, K, n_iter, ratio, window, cluster, stream)
     "spalign_slic_lloyd": (ctypes.c_int, [_P, _P, _P, _I, _I, _I, _I, _I,
-                                          _F, _F, _P]),
+                                          _F, _F, _I, _P]),
 })
 
 
@@ -45,6 +51,28 @@ def _check(lab: torch.Tensor, c0: torch.Tensor, height: int, width: int,
     # integer coordinate sums must fit 32 bits
     if height * width * max(height, width) >= 2 ** 32:
         raise ValueError(f"image {height}x{width} too large")
+
+
+def cluster_size(n_images: int, height: int, width: int) -> int:
+    """CTAs per image in the Lloyd kernel's launch on the current CUDA
+    device: the largest of 16, 8, 4, 2 that is at most the image's tile
+    count and with which all ``n_images`` clusters are resident on the
+    card at once (``cudaOccupancyMaxActiveClusters``), else 1.  So a
+    batch of 30 large frames spreads each frame over several SMs, and the
+    150 images of a bench unit still run in one wave.  Cached: the query
+    costs more host time than a launch."""
+    return _cluster_size(torch.cuda.current_device(), n_images, height,
+                         width)
+
+
+@functools.lru_cache(maxsize=None)
+def _cluster_size(device: int, n_images: int, height: int,
+                  width: int) -> int:
+    c = LIBRARY.get().spalign_slic_lloyd_cluster(n_images, height, width)
+    if c <= 0:
+        raise RuntimeError(f"slic_lloyd cluster query failed: CUDA error "
+                           f"{-c}")
+    return c
 
 
 def slic_lloyd(lab: torch.Tensor, c0: torch.Tensor, *, height: int,
@@ -65,10 +93,11 @@ def slic_lloyd(lab: torch.Tensor, c0: torch.Tensor, *, height: int,
     labels = torch.empty((b, height * width), dtype=torch.int32,
                          device=lab.device)
     with torch.cuda.device(lab.device):
+        cluster = cluster_size(b, height, width)
         stream = torch.cuda.current_stream(lab.device).cuda_stream
         err = fn(lab.data_ptr(), c0.data_ptr(), labels.data_ptr(), b,
                  height, width, k, n_iter, float(ratio), float(window),
-                 stream)
+                 cluster, stream)
     if err != 0:
         raise RuntimeError(f"slic_lloyd kernel launch failed: CUDA error "
                            f"{err}")
@@ -94,41 +123,3 @@ def slic_lloyd_reference(lab: torch.Tensor, c0: torch.Tensor, *,
         labels = slic_assign_reference(lab, centers, **shape)
         centers = update_centers(rows, labels, centers)
     return slic_assign_reference(lab, centers, **shape)
-
-
-def pixel_rows(lab: torch.Tensor, width: int) -> torch.Tensor:
-    """(6, B*H*W) float64 per-pixel addends of the centre update, all
-    integers (exact below 2^53): round(L * 2^16), round(a * 2^16),
-    round(b * 2^16), y, x, 1.  Loop-invariant: made once per SLIC
-    call."""
-    b, _, hw = lab.shape
-    f64 = torch.float64
-    pix = torch.arange(hw, device=lab.device)
-    py = torch.div(pix, width, rounding_mode="floor")
-    q = torch.round(lab * 65536.0).to(f64)  # (B, 3, HW)
-    ints = torch.stack([py, pix - py * width, torch.ones_like(py)]).to(f64)
-    return torch.cat([q.transpose(0, 1).reshape(3, b * hw),
-                      ints.repeat(1, b)])
-
-
-def update_centers(rows: torch.Tensor, labels: torch.Tensor,
-                   centers: torch.Tensor) -> torch.Tensor:
-    """The centre update both SLIC engines share: every centre moves to
-    the mean of its members, an empty one stays.  The sums are integers
-    (fixed-point L, a, b; y, x and the counts) summed by ``bincount`` in
-    float64, exact while they stay below 2^53, so they do not depend on
-    the order of the card's atomics; the means are taken in float64 and
-    rounded to float32, as the Lloyd kernel does.
-
-    rows: ``pixel_rows``; labels (B, H*W) of the sweep; centers
-    (B, K, 5).  Returns (B, K, 5)."""
-    b, k, _ = centers.shape
-    ids = (labels.to(torch.int64)
-           + (torch.arange(b, device=labels.device) * k)[:, None]).reshape(-1)
-    sums = torch.stack([torch.bincount(ids, weights=r, minlength=b * k)
-                        for r in rows])
-    n = sums[5:]
-    mean = torch.cat([sums[:3] / n / 65536.0, sums[3:5] / n]).to(
-        torch.float32).T
-    return torch.where(n.T > 0, mean, centers.reshape(b * k, 5)).reshape(
-        b, k, 5).contiguous()

@@ -16,6 +16,7 @@ import torch
 from spalign_tpu_torch.kernels import pooling as tpk
 from spalign_tpu_torch.kernels import slic as tslic
 from spalign_tpu_torch.kernels import slic_assign as tsa
+from spalign_tpu_torch.kernels import slic_fused as tsf
 from spalign_tpu_torch.kernels.slic_fused import (slic_lloyd,
                                                   slic_lloyd_reference)
 from spalign_tpu_torch.ops.pooling import max_pool_argmax_2x2, max_unpool_2x2
@@ -48,7 +49,10 @@ def _inputs(dev, b, h, w, n_seg, seed=0):
 
 @pytest.mark.parametrize("b,h,w,n_seg", [(4, 224, 224, 100),
                                          (3, 96, 130, 40),
-                                         (2, 64, 64, 128)])
+                                         (2, 64, 64, 128),
+                                         (1, 224, 224, 100),
+                                         (30, 160, 320, 100),
+                                         (150, 224, 224, 100)])
 def test_kernel_equals_plain_version(cuda, b, h, w, n_seg):
     lab, c0, kw = _inputs(cuda, b, h, w, n_seg)
     before = slic_lloyd.launches
@@ -59,6 +63,24 @@ def test_kernel_equals_plain_version(cuda, b, h, w, n_seg):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8, 16])
+def test_every_cluster_size_equals_plain_version(cuda, monkeypatch, cluster):
+    """The cluster size the occupancy query would pick forced: a ragged
+    100x150 image (tiles cut at the edge) stays bit-equal for every C."""
+    lab, c0, kw = _inputs(cuda, 3, 100, 150, 60)
+    monkeypatch.setattr(tsf, "cluster_size", lambda *a: cluster)
+    assert torch.equal(slic_lloyd(lab, c0, **kw),
+                       slic_lloyd_reference(lab, c0, **kw))
+
+
+def test_cluster_size_fills_the_card(cuda):
+    """All of a batch's clusters fit at once at the two shapes the label
+    paths run, and a lone image spreads over the largest cluster."""
+    sizes = {b: tsf.cluster_size(b, h, w)
+             for b, h, w in [(150, 224, 224), (30, 512, 1024), (1, 224, 224)]}
+    assert sizes[30] >= 8 and sizes[1] == 16 and sizes[150] >= 2, sizes
+
+
 def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     lab, c0, kw = _inputs(cuda, 1, 32, 32, 9)
     import spalign_tpu_torch.kernels.slic_fused as mod
@@ -66,7 +88,10 @@ def test_cuda_tensors_never_take_the_plain_path(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called for CUDA tensors")
 
-    monkeypatch.setattr(mod, "slic_lloyd_reference", boom)
+    for name in ("slic_lloyd_reference", "update_centers", "pixel_rows"):
+        monkeypatch.setattr(mod, name, boom)
+    monkeypatch.setattr(tsa, "center_sums", boom)
+    monkeypatch.setattr(torch, "bincount", boom)
     out = slic_lloyd(lab, c0, **kw)
     assert out.shape == (1, 32 * 32) and out.min() >= 0
     assert np.all(out.cpu().numpy() < c0.shape[1])
@@ -94,13 +119,51 @@ def test_assign_kernel_equals_plain_version(cuda, b, h, w, n_seg, case):
     assert torch.equal(got, tsa.slic_assign_reference(lab, c0, **kw))
 
 
+def _plain_sums(lab, centers, kw):
+    labels = tsa.slic_assign_reference(lab, centers, **kw)
+    return tsa.center_sums(tsa.pixel_rows(lab, kw["width"]), labels, centers)
+
+
+@pytest.mark.parametrize("b,h,w,n_seg,case", [
+    (3, 256, 512, 100, "grid"),
+    (2, 250, 333, 100, "after_2_sweeps"),  # ragged H*W, moved centres
+    (2, 300, 600, 1000, "grid"),  # K = 990
+    (2, 300, 600, 1000, "after_2_sweeps"),
+    (2, 96, 130, 40, "empty"),  # every window empty: global atomics
+])
+def test_fused_sums_equal_center_sums(cuda, b, h, w, n_seg, case):
+    """The kernel's int64 sums against bincount's over the plain labels,
+    and its labels against the plain labels."""
+    lab, c0, kw = _inputs(cuda, b, h, w, n_seg)
+    kw = {k: v for k, v in kw.items() if k != "n_iter"}
+    if case == "empty":
+        c0 = c0.clone()
+        c0[..., 3] += 10 * h
+    elif case == "after_2_sweeps":
+        for _ in range(2):
+            c0 = tsa.update_centers(tsa.pixel_rows(lab, w),
+                                    tsa.slic_assign_reference(lab, c0, **kw),
+                                    c0)
+    before = (tsa.slic_assign.launches, tsa.slic_assign.sums_launches)
+    sums = tsa.slic_assign(lab, c0, sums=True, **kw)
+    labels = tsa.slic_assign(lab, c0, **kw)
+    torch.cuda.synchronize()
+    assert (tsa.slic_assign.launches,
+            tsa.slic_assign.sums_launches) == (before[0] + 2, before[1] + 1)
+    assert sums.shape == (b, c0.shape[1], 6) and sums.dtype == torch.int64
+    assert torch.equal(sums, _plain_sums(lab, c0, kw))
+    assert torch.equal(labels, tsa.slic_assign_reference(lab, c0, **kw))
+
+
 @pytest.mark.parametrize("b,h,w,n_seg", [(4, 224, 224, 100),
-                                         (3, 96, 130, 40)])
+                                         (3, 96, 130, 40),
+                                         (30, 512, 1024, 100)])
 def test_engines_equal_on_the_card(cuda, b, h, w, n_seg):
     lab, c0, kw = _inputs(cuda, b, h, w, n_seg)
-    before = tsa.slic_assign.launches
+    before = (tsa.slic_assign.launches, tsa.slic_assign.sums_launches)
     sweep = tslic.slic_per_sweep(lab, c0, **kw)
-    assert tsa.slic_assign.launches == before + kw["n_iter"] + 1
+    assert (tsa.slic_assign.launches, tsa.slic_assign.sums_launches) == (
+        before[0] + kw["n_iter"] + 1, before[1] + kw["n_iter"])
     assert torch.equal(sweep, slic_lloyd(lab, c0, **kw))
 
 
@@ -134,7 +197,10 @@ def test_assign_never_takes_the_plain_path(cuda, monkeypatch):
     def boom(*a, **k):
         raise AssertionError("plain version called for CUDA tensors")
 
-    monkeypatch.setattr(tsa, "slic_assign_reference", boom)
+    for name in ("slic_assign_reference", "center_sums", "update_centers",
+                 "pixel_rows"):
+        monkeypatch.setattr(tsa, name, boom)
+    monkeypatch.setattr(torch, "bincount", boom)
     out = tslic.slic_per_sweep(lab, c0, **kw)
     assert out.shape == (2, 64 * 96) and int(out.min()) >= 0
     assert int(out.max()) < c0.shape[1]
