@@ -8,7 +8,8 @@ Run from the root of the repository on a machine with one CUDA GPU and
 
   device       the card (nvidia-smi name and power limit), CUDA, PyTorch
   build        nvcc builds of csrc/slic_lloyd.cu, csrc/slic_assign.cu and
-               csrc/pooling.cu, run together, and ptxas's resource use per
+               csrc/pooling.cu and the g++ build of the host library
+               csrc/host_ops.cpp, run together; ptxas's resource use per
                kernel
   slic_lloyd   the SLIC Lloyd kernel against its plain PyTorch version on
                the inputs the main path gives it (150 x 224^2, 100
@@ -62,6 +63,24 @@ Run from the root of the repository on a machine with one CUDA GPU and
                yuv420): a warm-up unit, then 3 timed units
   cli          spalign_tpu_torch.cli.label_gen.main in the overlaps mode on
                4 synthetic scenes at 1024x2048, in-process
+  host_library felzenszwalb (300 / 0.8 / 20) of golden_frames() must give
+               the sha256 the JAX package's library gives
+               (GOLDEN_MAPS_SHA256); the native scorer must equal the plain
+               one on the 60 labelIds at 512x1024; ms per image of both,
+               and of felzenszwalb at 224^2 and at 1024x2048
+  host_superpixels_path  SpalignLabelGenerator with the default
+               SuperpixelConfig() (felzenszwalb, max_superpixels 1024) at
+               the bench unit on the rgb8 wire: a warm-up unit, 3 timed
+               units; no road mask empty, counts within the bound; then one
+               unit with SLIC + the connectivity pass, which must launch
+               the Lloyd kernel
+  parity_path  one batch of 30 in the bit-parity mode (felzenszwalb,
+               float32 DRN); its parity stages re-run on the CPU from the
+               card's features and maps must give the same cluster maps
+  overlaps_felzenszwalb_path  the overlaps mode with felzenszwalb of the
+               30 frames at 1024x2048, max_superpixels the largest count
+               they give: a warm-up and a timed batch; then one batch with
+               SLIC + the connectivity pass (11 assignment launches)
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -71,6 +90,7 @@ then exits non-zero without the last line.  Without CUDA it exits 2.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import re
@@ -97,6 +117,15 @@ POOL_SOURCE = "spalign_tpu_torch/csrc/pooling.cu"
 POOL_REPLACES = {"pool2x2": "spalign_tpu/kernels/pooling_pallas.py:83",
                  "scatter2x2": "spalign_tpu/kernels/pooling_pallas.py:119",
                  "gather2x2": "spalign_tpu/kernels/pooling_pallas.py:149"}
+# felzenszwalb at the reference parameters (scale 300, sigma 0.8, min size
+# 20) on golden_frames(): the sha256 of the frames and of the int32 maps,
+# as the JAX package's own library gives them (tests/test_torch_native.py
+# holds both constants to it)
+FELZENSZWALB_PARAMS = (300.0, 0.8, 20)
+GOLDEN_FRAMES_SHA256 = (
+    "1dad725882efc7f10d2ac17610918e0b70923d856b5c6a2ab4c3c0bd70405c85")
+GOLDEN_MAPS_SHA256 = (
+    "122c977460887e78740a4ad6cdff34157559dee94c065db5af9b66fab94688f2")
 
 
 def emit(obj):
@@ -145,16 +174,39 @@ class Frames:
         return self.full[[i % len(self.full) for i in indices]]
 
 
+def scenes512():
+    from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
+
+    return SyntheticRoadScenes(n=N_SCENES, full_shape=(512, 1024), seed=7)
+
+
 def make_scenes():
     """30 synthetic scenes at 512x1024 and their mirror images: 60 frames
     with their labelIds, both at 512x1024."""
-    from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
-
-    ds = SyntheticRoadScenes(n=N_SCENES, full_shape=(512, 1024), seed=7)
-    imgs, labels = ds.resized_batch(range(N_SCENES), (512, 1024))
+    imgs, labels = scenes512().resized_batch(range(N_SCENES), (512, 1024))
     frames = np.concatenate([imgs, imgs[:, :, ::-1]])
     labels = np.concatenate([labels, labels[:, :, ::-1]])
     return np.ascontiguousarray(frames), np.ascontiguousarray(labels)
+
+
+def golden_frames():
+    """The first 4 frames of ``make_scenes()`` strided to 256x512: uint8
+    frames made without a resize."""
+    imgs, _ = scenes512().resized_batch(range(4), (512, 1024))
+    return np.ascontiguousarray(imgs[:, ::2, ::2])
+
+
+def sha256(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def felzenszwalb_maps(felzenszwalb, frames):
+    """(B, H, W) int32 maps of ``felzenszwalb`` (the port's or the JAX
+    package's binding) at FELZENSZWALB_PARAMS, as the label paths call
+    it (frames / 255 in float32)."""
+    return np.stack([felzenszwalb(f.astype(np.float32) / 255.0,
+                                  *FELZENSZWALB_PARAMS)
+                     for f in frames]).astype(np.int32)
 
 
 def make_full_scenes():
@@ -971,12 +1023,251 @@ def cli_phase():
     return out
 
 
+def drive(gen, dataset):
+    """``gen.process_dataset`` with every kernel count set to 0 just
+    before and read just after: (records, seconds, launches)."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    records = gen.process_dataset(dataset, save=False)
+    torch.cuda.synchronize()
+    return records, time.time() - t0, read_counts()
+
+
+def drive_summary(gen, dataset, per):
+    """``drive`` and what a phase reports of the run: images/s, host
+    seconds by stage per ``per`` records, superpixel counts, mean road
+    IoU, launches."""
+    records, elapsed, launches = drive(gen, dataset)
+    counts = np.concatenate([r["n_superpixels"] for r in records[::per]])
+    return records, {
+        "images": len(records), "seconds": elapsed,
+        "images_per_s": len(records) / elapsed,
+        "stage_seconds": stage_seconds(records, per),
+        "superpixel_counts": {"min": int(counts.min()),
+                              "median": float(np.median(counts)),
+                              "max": int(counts.max())},
+        "mean_road_iou": float(np.mean([r["road_iou"] for r in records])),
+        "launches": launches}
+
+
+def host_library_phase(frames, labels, frames_full, cfg):
+    """The host library: felzenszwalb of golden_frames() against the JAX
+    package's constant, the native scorer against its plain version on
+    the spalign path's 512x1024 labels, and their times."""
+    from spalign_tpu_torch import native
+    from spalign_tpu_torch.pipeline.label_gen import (host_confusion,
+                                                      host_confusion_reference)
+
+    frames = golden_frames()
+    maps = felzenszwalb_maps(native.felzenszwalb, frames)
+    rng = np.random.RandomState(0)
+    masks = rng.rand(len(labels), *cfg.resize_shape) < 0.4
+    t0 = time.perf_counter()
+    confs = [host_confusion(m, lab) for m, lab in zip(masks, labels)]
+    score_ms = (time.perf_counter() - t0) / len(labels) * 1e3
+    t0 = time.perf_counter()
+    want = [host_confusion_reference(m, lab) for m, lab in zip(masks, labels)]
+    plain_ms = (time.perf_counter() - t0) / len(labels) * 1e3
+    same_conf = all(np.array_equal(a, b) for a, b in zip(confs, want))
+
+    def felz_ms(batch):
+        t0 = time.perf_counter()
+        felzenszwalb_maps(native.felzenszwalb, batch)
+        return (time.perf_counter() - t0) / len(batch) * 1e3
+
+    out = {"phase": "host_library", "cpu_count": os.cpu_count(),
+           "golden_frames_sha256": sha256(frames),
+           "golden_maps_sha256": sha256(maps),
+           "golden_counts": (maps.max(axis=(1, 2)) + 1).tolist(),
+           "felzenszwalb_params": list(FELZENSZWALB_PARAMS),
+           "felzenszwalb_ms_per_image_224": felz_ms(frames[:30]),
+           "felzenszwalb_ms_per_image_1024x2048": felz_ms(frames_full[:4]),
+           "scorer_images": len(labels), "scorer_hw": list(labels.shape[1:]),
+           "scorer_ms_per_image": score_ms,
+           "plain_scorer_ms_per_image": plain_ms,
+           "scorer_equals_plain": same_conf}
+    emit(out)
+    check(out["golden_frames_sha256"] == GOLDEN_FRAMES_SHA256,
+          "golden frames as made on the machine that fixed the constant")
+    check(out["golden_maps_sha256"] == GOLDEN_MAPS_SHA256,
+          "felzenszwalb maps equal the JAX package's library's")
+    check(same_conf, "native scorer equals the plain scorer")
+    return out
+
+
+def host_superpixels_phase(frames, labels):
+    """SpalignLabelGenerator with the default SuperpixelConfig()
+    (felzenszwalb 300 / 0.8 / 20, max_superpixels 1024) at the bench unit
+    on the rgb8 wire: a warm-up unit, 3 timed units; then one unit with
+    SLIC + the connectivity pass."""
+    import torch
+
+    from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+
+    cfg = LabelGenConfig(batchsize=30, groups_per_dispatch=5,
+                         upload_format="rgb8", save_masks=False)
+    gen = SpalignLabelGenerator(cfg)
+    gen.process_dataset(Frames(frames, labels, UNIT), save=False)
+    torch.cuda.reset_peak_memory_stats()
+    records, timed = drive_summary(gen, Frames(frames, labels, 3 * UNIT),
+                                   UNIT)
+    peak = torch.cuda.max_memory_allocated()
+    predicted = [r["TP"] + r["FP"] for r in records]
+    del gen
+    torch.cuda.empty_cache()
+
+    gen = SpalignLabelGenerator(dataclasses.replace(
+        cfg, superpixel=SuperpixelConfig(method="slic", n_slic_segments=100,
+                                         slic_iters=10)))
+    slic_records, slic = drive_summary(gen, Frames(frames, labels, UNIT),
+                                       UNIT)
+    out = {"phase": "host_superpixels_path", "units": 3, "unit": UNIT,
+           "wire": cfg.upload_format,
+           "superpixel": dataclasses.asdict(cfg.superpixel), **timed,
+           "min_predicted_road_px": int(min(predicted)),
+           "retries": int(sum(r["retries"] for r in records[::UNIT])),
+           "peak_memory_bytes": peak, "slic_connectivity": slic}
+    emit(out)
+    check(len(records) == 3 * UNIT, "one record per image")
+    check(min(predicted) > 0, "no all-empty road mask")
+    check(all(np.isfinite(r["road_iou"]) for r in records + slic_records),
+          "finite road IoU")
+    check(timed["superpixel_counts"]["max"]
+          <= cfg.superpixel.max_superpixels, "counts within max_superpixels")
+    check(slic["launches"]["slic_lloyd"] > 0,
+          "SLIC + connectivity launched the Lloyd kernel")
+    return out
+
+
+def parity_phase(frames):
+    """One batch of 30 at 224^2 in the bit-parity mode (felzenszwalb,
+    float32 DRN) on the card, and its parity stages re-run on the CPU
+    from the card's features and maps with fresh replicas of the same
+    streams: only the Lloyd loop's device differs."""
+    import torch
+
+    from spalign_tpu_torch.config import KMeansConfig, LabelGenConfig
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+    from spalign_tpu_torch.utils.timers import StageTimer
+
+    cfg = LabelGenConfig(batchsize=30, upload_format="rgb8",
+                         save_masks=False, kmeans=KMeansConfig(
+                             init="reference"))
+    batch = frames[:30]
+    gen = SpalignLabelGenerator(cfg)
+    features = []
+    real_features = gen.features
+
+    def keep_features(images):
+        out = real_features(images)
+        features.append(out)
+        return out
+
+    gen.features = keep_features
+    torch.cuda.synchronize()
+    reset_counts()
+    timers = StageTimer()
+    t0 = time.time()
+    card = gen._host_prepare(batch, None, timers)  # run_batch, in parts
+    handles = gen.dispatch_batch(card, timers)
+    road, cluster, diag = gen.finish_batch(card, handles, timers)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    launches = read_counts()
+    cluster = cluster.cpu().numpy()
+
+    cpu = SpalignLabelGenerator(cfg, device="cpu")
+    cpu.features = lambda images: features[0].cpu()
+    prepared = cpu._host_prepare(batch)
+    t0 = time.time()
+    for _ in range(diag["retries"] + 1):  # the card's inits, in order
+        plain = cpu.run_parity(prepared, StageTimer())
+    cpu_seconds = time.time() - t0
+    plain_cluster = plain["cluster"].numpy()
+    differ = int((plain_cluster != cluster).sum())
+    out = {"phase": "parity_path", "images": len(batch),
+           "seconds": elapsed, "stage_seconds": {
+               k[5:]: v for k, v in timers.times.items()},
+           "features_dtype": str(features[0].dtype)[6:],
+           "n_superpixels": {"min": min(diag["n_superpixels"]),
+                             "max": max(diag["n_superpixels"])},
+           "kmeans_iters": diag["_per_group"]["kmeans_iters"],
+           "retries": diag["retries"], "road_px": int(road.sum()),
+           "cpu_rerun_seconds": cpu_seconds,
+           "cluster_pixels_differing_from_cpu": differ,
+           "superpixels_equal": bool(np.array_equal(
+               prepared["sps_host"], card["sps_host"])),
+           "launches": launches}
+    emit(out)
+    check(out["features_dtype"] == "float32", "float32 features")
+    check(out["superpixels_equal"], "the CPU re-run has the card's maps")
+    check(differ == 0, "card cluster maps equal the CPU re-run's")
+    return out
+
+
+def overlaps_felzenszwalb_phase(frames_full, labels_full):
+    """The overlaps mode with felzenszwalb of the 1024x2048 frames (the
+    reference's default frontend), batch 30: max_superpixels set to the
+    largest count the frames give, a warm-up and a timed batch; then one
+    batch with SLIC + the connectivity pass."""
+    from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
+    from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
+    from spalign_tpu_torch.pipeline.direct import make_label_generator
+    from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
+
+    n = len(frames_full)
+    sp = SuperpixelConfig(max_superpixels=2 ** 20)
+    t0 = time.time()
+    _, counts = compute_superpixels(frames_full, sp)
+    t_counts = time.time() - t0
+    bound = int(counts.max())
+    cfg = LabelGenConfig(mode="overlaps", batchsize=n, save_masks=False,
+                         superpixel=dataclasses.replace(
+                             sp, max_superpixels=bound))
+    frames = np.stack([resize_bicubic_u8(f, cfg.resize_shape)
+                       for f in frames_full])
+    dataset = Frames(frames, labels_full, n, full=frames_full)
+    gen = make_label_generator(cfg)
+    gen.process_dataset(dataset, save=False)
+    records, timed = drive_summary(gen, dataset, n)
+    predicted = [r["TP"] + r["FP"] for r in records]
+    del gen
+
+    gen = make_label_generator(dataclasses.replace(
+        cfg, superpixel=SuperpixelConfig(method="slic", n_slic_segments=100,
+                                         slic_iters=10)))
+    slic_records, slic = drive_summary(gen, dataset, n)
+    out = {"phase": "overlaps_felzenszwalb_path", "batch": n,
+           "full_hw": list(FULL_HW),
+           "superpixel": dataclasses.asdict(cfg.superpixel),
+           "max_superpixels": bound, "counting_seconds": t_counts, **timed,
+           "min_predicted_road_px": int(min(predicted)),
+           "slic_connectivity": slic}
+    emit(out)
+    check(len(records) == n, "one record per image")
+    check(min(predicted) > 0, "no all-empty road mask")
+    check(all(np.isfinite(r["road_iou"]) for r in records + slic_records),
+          "finite road IoU")
+    check(records[0]["n_superpixels"] == counts.tolist(),
+          "records carry the felzenszwalb counts")
+    check(slic["launches"]["slic_assign"] == 11
+          and slic["launches"]["slic_assign_sums"] == 10,
+          f"SLIC + connectivity at 1024x2048: 11 assignment launches, "
+          f"got {slic['launches']}")
+    return out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    from spalign_tpu_torch import native
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
     from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
     from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
@@ -997,12 +1288,15 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "python": sys.version.split()[0]})
 
-    libs = [slic_fused.LIBRARY, slic_assign.LIBRARY, pooling.LIBRARY]
+    libs = [slic_fused.LIBRARY, slic_assign.LIBRARY, pooling.LIBRARY,
+            native.LIBRARY]
     t0 = time.time()
     build_libraries(libs)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
-          "libraries": [{"source": f"spalign_tpu_torch/csrc/{lib.name}.cu",
-                         "nvcc_seconds": lib.build_seconds,
+          "libraries": [{"source": "spalign_tpu_torch/csrc/"
+                                   + lib.source.name,
+                         "compiler": lib.compiler().rsplit("/", 1)[-1],
+                         "seconds": lib.build_seconds,
                          "ptxas": ptxas_lines(lib)} for lib in libs]})
 
     # --- the kernel against its plain version, at the main path's inputs
@@ -1111,9 +1405,16 @@ def main() -> int:
 
     # --- the overlaps and direct modes, and the CLI
     overlaps = overlaps_phase(frames_full, labels_full)
-    del frames_full, labels_full
     direct_phase(frames, labels)
     cli_phase()
+    torch.cuda.empty_cache()
+
+    # --- the host library, the host superpixel engines, the parity mode
+    host_library_phase(frames, labels, frames_full, cfg)
+    host_sp = host_superpixels_phase(frames, labels)
+    parity_phase(frames)
+    overlaps_felz = overlaps_felzenszwalb_phase(frames_full, labels_full)
+    del frames_full, labels_full
     torch.cuda.empty_cache()
 
     # --- stage 2: the pooling kernels, then SegNetBasic training
@@ -1121,11 +1422,20 @@ def main() -> int:
     train_launches = train_phase(cfg, frames, frames512, labels,
                                  pool_summary)
 
-    # slic_assign launches in two forms on the overlaps path (labels once a
-    # batch, sums-only n_iter times): its ms, plain_ms and bound_ms are
-    # means over the path's launches, each form weighted by its count
-    n_sums = overlaps["launches"]["slic_assign_sums"]
-    n_labels = overlaps["launches"]["slic_assign"] - n_sums
+    # launches over every path that runs a kernel, each path's counts set
+    # to 0 just before it and read just after
+    lloyd_paths = {"main_path": launches,
+                   "host_superpixels_path.slic_connectivity":
+                   host_sp["slic_connectivity"]["launches"]["slic_lloyd"]}
+    assign_paths = {
+        "overlaps_path": overlaps["launches"],
+        "overlaps_felzenszwalb_path.slic_connectivity":
+        overlaps_felz["slic_connectivity"]["launches"]}
+    # slic_assign launches in two forms on the overlaps paths (labels once
+    # a batch, sums-only n_iter times): its ms, plain_ms and bound_ms are
+    # means over the paths' launches, each form weighted by its count
+    n_sums = sum(c["slic_assign_sums"] for c in assign_paths.values())
+    n_labels = sum(c["slic_assign"] for c in assign_paths.values()) - n_sums
 
     def per_launch(labels_key, sums_key):
         return ((n_labels * assign[labels_key] + n_sums * assign[sums_key])
@@ -1135,13 +1445,16 @@ def main() -> int:
         "name": "slic_lloyd", "route": "cuda",
         "source": "spalign_tpu_torch/csrc/slic_lloyd.cu",
         "replaces": "spalign_tpu/kernels/slic_fused.py:52",
-        "launches": launches, "max_abs_err": max_abs_err,
+        "launches": sum(lloyd_paths.values()),
+        "launches_by_path": lloyd_paths, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
         "bound_ms": lloyd_ms, "bound_by": lloyd_by, "library_ms": None}, {
         "name": "slic_assign", "route": "cuda",
         "source": "spalign_tpu_torch/csrc/slic_assign.cu",
         "replaces": "spalign_tpu/kernels/experimental/slic_pallas.py:32",
         "launches": n_labels + n_sums,
+        "launches_by_path": {k: c["slic_assign"]
+                             for k, c in assign_paths.items()},
         "max_abs_err": max(assign["max_abs_err"].values()),
         "ms": per_launch("kernel_ms", "sums_ms"),
         "plain_ms": per_launch("plain_ms", "sums_plain_ms"),

@@ -2,10 +2,9 @@
 
 Counterpart of ``spalign_tpu/cli/label_gen.py`` with the same flags and
 defaults, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
-PyTorch versions of the kernels).  Not ported: ``--profile_dir``, the
-bit-parity k-means init, diagnostic panels (``--save_images``) and the
-host superpixel engines (felzenszwalb, SLIC with connectivity), which
-raise ``NotImplementedError``.
+PyTorch versions of the kernels).  Every superpixel engine and both
+k-means inits run.  Not ported: ``--profile_dir`` and diagnostic panels
+(``--save_images``, which raises ``NotImplementedError``).
 
 Example (data-free):
   python -m spalign_tpu_torch.cli.label_gen --mode overlaps --synthetic 4 \
@@ -51,8 +50,8 @@ def get_args(argv=None):
     p.add_argument("--n_slic_segments", type=int, default=100)
     p.add_argument("--slic_no_connectivity", action="store_true",
                    default=False,
-                   help="device SLIC without the connectivity pass (the "
-                        "only SLIC frontend the port runs)")
+                   help="device SLIC without the host connectivity "
+                        "pass")
     p.add_argument("--slic_device_downscale", type=int, default=1,
                    help="device-SLIC frontends only: compute the "
                         "superpixel map at 1/d scale")
@@ -69,7 +68,7 @@ def get_args(argv=None):
     p.add_argument("--seed", type=int, default=1111)
     p.add_argument("--kmeans_init", default="device",
                    choices=["device", "reference"],
-                   help="'reference' is the bit-parity mode (not ported)")
+                   help="'reference' is the bit-parity mode")
     p.add_argument("--save_images", action="store_true", default=False)
     p.add_argument("--no_save_masks", action="store_true", default=False)
     p.add_argument("--model_dtype", default="bfloat16",

@@ -34,9 +34,10 @@ class PriorConfig:
 class SuperpixelConfig:
     """Superpixel frontend (reference batch_spalign_kmeans.py:299-313).
 
-    The port runs only the device SLIC frontend
-    (``method='slic'``, ``slic_enforce_connectivity=False``); the host
-    engines are rejected by the label generator.
+    ``method='felzenszwalb'`` runs the native host op (the reference's
+    headline configuration); ``method='slic'`` runs SLIC on the device,
+    then the host connectivity pass unless
+    ``slic_enforce_connectivity=False`` (``pipeline/superpixels.py``).
     """
 
     method: str = "felzenszwalb"  # 'felzenszwalb' | 'slic'
@@ -83,8 +84,9 @@ class KMeansConfig:
     seed: int = 1111
     # full re-runs when an image ends up with an empty road mask
     max_retries: int = 3
-    # 'device': seeded on the device (the port's only mode);
-    # 'reference': the bit-parity mode, not ported yet
+    # 'device': seeded on the device from the host seed stream;
+    # 'reference': the bit-parity mode, the reference's own numpy and
+    # python streams replayed on the host (ops/parity.py), DRN in float32
     init: str = "device"
 
     def __post_init__(self):

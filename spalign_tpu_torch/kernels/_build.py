@@ -1,12 +1,15 @@
-"""Build the package's CUDA sources into shared libraries.
+"""Build the package's C++ and CUDA sources into shared libraries.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for Hopper (``sm_90a``) into ``spalign_tpu_torch/_build/`` at
-first use, then loaded with ``ctypes``.  A source without PyTorch's
-headers compiles in seconds.  The library's file name carries a hash of
-the source, the ``csrc/`` headers it includes (``#include "..."``, and
-theirs) and the flags, so an edited source or header is rebuilt.  A
-failed build raises: there is no fallback to the plain PyTorch version.
+first use, then loaded with ``ctypes`` (``CudaLibrary``); a source
+without PyTorch's headers compiles in seconds.  ``csrc/<name>.cpp``
+holds host code, compiled the same way by ``g++`` with the JAX package's
+native flags (``HostLibrary``).  The library's file name carries a hash
+of the source, the ``csrc/`` headers it includes (``#include "..."``,
+and theirs) and the flags, so an edited source or header is rebuilt.  A
+failed build raises with the compiler's output: there is no fallback to
+a plain version.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the flags of spalign_tpu/native (same source, same flags: same maps)
+GXX_FLAGS = ("-O3", "-march=native", "-std=c++17", "-shared", "-fPIC")
 _LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 
@@ -56,18 +61,37 @@ def find_nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def find_gxx() -> str:
+    found = shutil.which("g++")
+    if found is None:
+        raise RuntimeError("g++ not found: put g++ on PATH")
+    return found
+
+
 class CudaLibrary:
     """One CUDA source, built and loaded on first use.
 
     ``signatures`` maps each exported C function to (restype, argtypes),
-    declared on load.  ``build_seconds`` and ``build_log`` (nvcc's
-    output, including ``-Xptxas -v``'s registers and shared memory per
-    kernel) describe the build this process made or found."""
+    declared on load.  ``build_seconds`` and ``build_log`` (the
+    compiler's output; nvcc's includes ``-Xptxas -v``'s registers and
+    shared memory per kernel) describe the build this process made or
+    found."""
+
+    suffix, flags = ".cu", NVCC_FLAGS
+
+    @staticmethod
+    def compiler() -> str:
+        return find_nvcc()
+
+    def target(self) -> bytes:
+        """What else decides the built code: nothing for nvcc's fixed
+        target."""
+        return b""
 
     def __init__(self, name: str, signatures: dict):
         self.name = name
         self.signatures = signatures
-        self.source = CSRC_DIR / f"{name}.cu"
+        self.source = CSRC_DIR / f"{name}{self.suffix}"
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
@@ -77,8 +101,8 @@ class CudaLibrary:
         headers = b"".join(p.read_bytes()
                            for p in local_headers(self.source))
         digest = hashlib.sha256(
-            self.source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
+            self.source.read_bytes() + headers + " ".join(self.flags).encode()
+            + self.target()).hexdigest()[:16]
         out = BUILD_DIR / f"lib{self.name}-{digest}.so"
         log = out.with_suffix(".log")
         if out.exists():
@@ -87,15 +111,15 @@ class CudaLibrary:
             return out
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+        cmd = [self.compiler(), *self.flags, "-o", str(tmp), str(self.source)]
         t0 = time.time()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         self.build_seconds = time.time() - t0
         self.build_log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed with code {proc.returncode} building "
-                f"{self.source.name}:\n{self.build_log}")
+                f"{Path(cmd[0]).name} failed with code {proc.returncode} "
+                f"building {self.source.name}:\n{self.build_log}")
         log.write_text(self.build_log)
         os.replace(tmp, out)
         return out
@@ -109,3 +133,24 @@ class CudaLibrary:
                     fn.restype, fn.argtypes = restype, argtypes
                 self._lib = lib
             return self._lib
+
+
+class HostLibrary(CudaLibrary):
+    """One C++ source of host code (``csrc/<name>.cpp``), built by g++
+    and loaded on first use; the rest as ``CudaLibrary``."""
+
+    suffix, flags = ".cpp", GXX_FLAGS
+
+    @staticmethod
+    def compiler() -> str:
+        return find_gxx()
+
+    def target(self) -> bytes:
+        """The options ``-march=native`` resolves to on this machine, so
+        that a library built for another CPU is never loaded here."""
+        proc = subprocess.run([self.compiler(), "-march=native", "-Q",
+                               "--help=target"], capture_output=True)
+        if proc.returncode != 0:
+            raise RuntimeError("g++ -march=native -Q --help=target failed:\n"
+                               + proc.stderr.decode(errors="replace"))
+        return proc.stdout

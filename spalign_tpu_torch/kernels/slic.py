@@ -34,7 +34,7 @@ import torch
 
 from spalign_tpu_torch.kernels.slic_assign import (centers_from_sums,
                                                    slic_assign)
-from spalign_tpu_torch.kernels.slic_fused import slic_lloyd
+from spalign_tpu_torch.kernels.slic_fused import MAX_CENTERS, slic_lloyd
 from spalign_tpu_torch.utils.device import resolve_device
 
 
@@ -127,6 +127,14 @@ def slic_per_sweep(lab: torch.Tensor, c0: torch.Tensor, *, height: int,
 
 
 ENGINES = {"lloyd": slic_lloyd, "assign": slic_per_sweep}
+
+
+def engine_for(h: int, w: int, k: int) -> str:
+    """The engine an (h, w) image with K centres takes: the Lloyd kernel
+    where its bounds hold (network resolution), else the per-sweep
+    engine (the full-resolution frames)."""
+    fits = k <= MAX_CENTERS and h * w * max(h, w) < 2 ** 32
+    return "lloyd" if fits else "assign"
 
 
 def slic(images, n_segments: int = 100, compactness: float = 10.0,

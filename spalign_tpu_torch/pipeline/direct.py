@@ -11,10 +11,14 @@ Counterpart of ``spalign_tpu/pipeline/direct.py``.
 - 'overlaps' (reference superpixel_overlaps.py): direct clustering, then
   the coarse road mask is snapped to full-resolution superpixels -- a
   superpixel is road when overlap / n_predicted_road_pixels >
-  overlap_threshold (:359-369).  The superpixels are the device SLIC of
-  the full-resolution frames (per-sweep engine, ``csrc/slic_assign.cu``),
-  computed on the producer thread; felzenszwalb and SLIC with the
-  connectivity pass are not ported.
+  overlap_threshold (:359-369).  The superpixels of the full-resolution
+  frames are computed on the producer thread, by the device SLIC
+  frontend (per-sweep engine, ``csrc/slic_assign.cu``; the maps stay on
+  the device) or by a host engine (felzenszwalb, the reference's
+  default, or SLIC with the connectivity pass; the maps are uploaded).
+
+Both modes run under either k-means init: they never read it, and the
+parity mode only pins the DRN to float32 and one group a unit.
 
 Random draws (the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
@@ -191,33 +195,32 @@ class DirectLabelGenerator(LabelGeneratorBase):
 
 class OverlapsLabelGenerator(DirectLabelGenerator):
     """superpixel_overlaps.py equivalent: direct clustering + snapping to
-    the device SLIC of the full-resolution frames.  Road masks come back
-    at full resolution (cluster maps stay at feature resolution, as in
-    the reference's save path)."""
+    superpixels of the full-resolution frames.  Road masks come back at
+    full resolution (cluster maps stay at feature resolution, as in the
+    reference's save path)."""
 
     mode = "overlaps"
     needs_full_images = True
 
-    def _validate(self, cfg: LabelGenConfig):
-        super()._validate(cfg)
-        sp = cfg.superpixel
-        if sp.method != "slic" or sp.slic_enforce_connectivity:
-            raise NotImplementedError(
-                "the overlaps mode runs on the device SLIC frontend only "
-                "(method='slic', slic_enforce_connectivity=False); the "
-                "host superpixel engines are not ported")
-
     def _host_prepare(self, images_uint8: np.ndarray, full_images=None,
                       timers: Optional[StageTimer] = None) -> dict:
-        """Upload the resized batch, then the full-resolution frames
-        (yuv420 when the wire is, at 1/d with slic_device_downscale = d)
-        and run their SLIC on the upload stream, so that it overlaps the
-        previous unit's device program.  The maps stay on the device."""
+        """Upload the resized batch, then the superpixels of the
+        full-resolution frames, on the producer thread so that they
+        overlap the previous unit's device program: with a host engine,
+        its maps (``compute_superpixels``); with the device SLIC
+        frontend, the frames (yuv420 when the wire is, at 1/d with
+        slic_device_downscale = d), whose SLIC runs on the upload stream
+        and stays on the device."""
         if full_images is None:
             raise ValueError("overlaps mode needs full-resolution images")
         timers = timers or StageTimer()
         prepared = super()._host_prepare(images_uint8, full_images, timers)
         sp = self.cfg.superpixel
+        if sp.method != "slic" or sp.slic_enforce_connectivity:
+            prepared = self._host_superpixels(full_images, prepared, timers)
+            prepared.update(full_sps=prepared.pop("sps"), sps_upscale=1)
+            del prepared["sps_host"]
+            return prepared
         b, h, w = full_images.shape[:3]
         d = sp.slic_device_downscale
         if d > 1:

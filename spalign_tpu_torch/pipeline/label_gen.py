@@ -4,32 +4,42 @@ Counterpart of ``spalign_tpu/pipeline/label_gen.py``.
 ``LabelGeneratorBase`` is the host loop the three modes share (a
 producer thread that loads and uploads units ahead, ``in_flight`` units
 dispatched before the oldest is finished, scoring against full-resolution
-labelIds, ``.npy`` mask saving, resume); the direct and overlaps modes
-live in ``pipeline/direct.py``.  ``SpalignLabelGenerator`` runs the
-fused-SLIC path (``SpalignLabelGenerator._fused_program``): for each unit
-of G clustering groups of ``batchsize`` images
+labelIds with the native scorer, ``.npy`` mask saving, resume); the
+direct and overlaps modes live in ``pipeline/direct.py``.
+``SpalignLabelGenerator`` runs, for each unit of G clustering groups of
+``batchsize`` images, on one device:
 
-    yuv420 wire -> decode -> [d x d box mean] -> SLIC (CUDA kernel)
-      -> DRN features -> superpixel-align -> prior -> per-group weighted
-      k-means -> paint -> bit-packed road masks
+    wire -> decode -> superpixels -> DRN features -> superpixel-align
+      -> prior -> per-group weighted k-means -> paint -> bit-packed masks
 
-eagerly on one device, then on the host the bounded retry when a road
-mask comes out empty.
+then on the host the bounded retry when a road mask comes out empty.
+The superpixels come from one of two frontends:
+
+- the device SLIC frontend (``method='slic'`` without the connectivity
+  pass, ``kmeans.init='device'``): SLIC (CUDA kernel) inside the unit's
+  program, after an optional d x d box mean; K is the SLIC grid size;
+- the host engines (felzenszwalb, SLIC with the connectivity pass, and
+  every engine under the parity mode): ``compute_superpixels`` on the
+  producer thread, the maps uploaded narrowed; K is
+  ``max_superpixels``, the padding bound.
 
 Random draws (anchor bits and the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
 passed in (``UnitDraws``) so that tests can hand the port the JAX
-package's draws.
+package's draws.  The bit-parity mode (``kmeans.init='reference'``)
+replays the reference's own streams instead: the anchor shuffle, align
+and float64 prior on the host (``ops/parity.py``), the seed-1111 numpy
+init, then the Lloyd loop and painting on the device.
 
-Not ported yet (they raise ``NotImplementedError``): the host superpixel
-engines (felzenszwalb, SLIC with connectivity), the bit-parity mode
-(``kmeans.init='reference'``), diagnostic panels and the dynamic-k
+Not ported yet: diagnostic panels (``save_images``) and the dynamic-k
 sweep.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import random
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence
@@ -37,14 +47,20 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from spalign_tpu_torch import native
 from spalign_tpu_torch.config import LabelGenConfig, flatten
 from spalign_tpu_torch.eval.results import ResultWriter
 from spalign_tpu_torch.kernels.slic import slic, slic_grid_size
 from spalign_tpu_torch.models.drn import DRN_FACTORIES, preprocess_imagenet
 from spalign_tpu_torch.ops.align import superpixel_align
-from spalign_tpu_torch.ops.kmeans import paint_clusters, weighted_kmeans
+from spalign_tpu_torch.ops.kmeans import (paint_clusters, weighted_kmeans,
+                                          weighted_kmeans_from_init)
+from spalign_tpu_torch.ops.parity import (reference_seed_assignment,
+                                          reference_superpixel_align,
+                                          superpixel_prior_host)
 from spalign_tpu_torch.ops.prior import superpixel_prior
 from spalign_tpu_torch.ops.segments import anchor_key_bits
+from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 from spalign_tpu_torch.pipeline.wire import decode_yuv420, pack_yuv420
 from spalign_tpu_torch.utils.device import resolve_device
 from spalign_tpu_torch.utils.timers import StageTimer
@@ -177,8 +193,15 @@ _CONF_LUT[7] = 2
 def host_confusion(road_mask: np.ndarray,
                    label_ids_full: np.ndarray) -> np.ndarray:
     """(2, 2) int64 confusion conf[gt][pred] of one road mask against
-    full-resolution raw Cityscapes labelIds (void ids 0..6 ignored):
-    NN-upsample, LUT, bincount."""
+    full-resolution raw Cityscapes labelIds (void ids 0..6 ignored): the
+    native one-pass scorer (``native.confusion_vs_labelids``)."""
+    return native.confusion_vs_labelids(road_mask, label_ids_full)
+
+
+def host_confusion_reference(road_mask: np.ndarray,
+                             label_ids_full: np.ndarray) -> np.ndarray:
+    """Plain numpy version of :func:`host_confusion`: NN-upsample, LUT,
+    bincount."""
     h, w = label_ids_full.shape
     pred = road_mask.astype(np.uint8)
     if pred.shape != (h, w):
@@ -233,6 +256,15 @@ def _load_batch(dataset, indices, resize_hw):
     return np.stack(imgs), labels
 
 
+def fused_superpixels(cfg: LabelGenConfig) -> bool:
+    """True when SLIC runs inside the spalign unit's program (the device
+    SLIC frontend): method 'slic' without the host connectivity pass,
+    and the device init (the parity mode needs the maps on the host)."""
+    sp = cfg.superpixel
+    return (sp.method == "slic" and not sp.slic_enforce_connectivity
+            and cfg.kmeans.init == "device")
+
+
 def batch_slices(start_index: int, end_index: int, bs: int):
     """Clustering batches of ``bs`` images; the tail batch keeps the
     batchsize by overlapping its predecessor (reference
@@ -263,8 +295,9 @@ class LabelGeneratorBase:
       cfg: LabelGenConfig of the subclass's mode.
       state_dict: DRN weights (e.g. from ``convert.from_jax`` or a
         ``.pth`` checkpoint); random weights from a fixed seed when None.
-      seed: host seed stream of the per-group seeds (default
-        cfg.kmeans.seed).
+      seed: host seed stream of the per-group seeds, and the seed of the
+        parity mode's replicas of the reference's numpy and python
+        streams (default cfg.kmeans.seed).
       device: 'cuda' (default; raises without CUDA) or 'cpu'.
     """
 
@@ -286,14 +319,23 @@ class LabelGeneratorBase:
         model = DRN_FACTORIES[model_name](device="cpu")
         if state_dict is not None:
             model.load_state_dict(state_dict, strict=True)
-        dtype = {"float32": torch.float32,
-                 "bfloat16": torch.bfloat16}[cfg.model_dtype]
+        # the parity mode pins float32 whatever model_dtype says: its
+        # contract is the reference's float32/float64 host arithmetic
+        dtype = (torch.float32 if cfg.kmeans.init == "reference" else
+                 {"float32": torch.float32,
+                  "bfloat16": torch.bfloat16}[cfg.model_dtype])
         model = model.to(device=self.device, dtype=dtype)
         if self.device.type == "cuda":
             model = model.to(memory_format=torch.channels_last)
         self.model = model.eval()
-        self._seed_rng = np.random.RandomState(
-            cfg.kmeans.seed if seed is None else seed)
+        seed = cfg.kmeans.seed if seed is None else seed
+        self._seed_rng = np.random.RandomState(seed)
+        # the parity mode's replicas of the reference's process-global
+        # streams (random.seed / np.random.seed, batch_spalign_kmeans.py:
+        # 33-35): numpy for the k-means init (:148), python for the
+        # per-superpixel anchor shuffle (:232)
+        self._parity_rng = np.random.RandomState(seed)
+        self._parity_pyrng = random.Random(seed)
         p = cfg.prior
         self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
                               p.x_rel_sigma)
@@ -302,23 +344,29 @@ class LabelGeneratorBase:
         self._want_cluster_np = False  # set by process_dataset when saving
 
     def _validate(self, cfg: LabelGenConfig):
-        """Raise on a configuration this generator does not run; the
-        subclasses add their superpixel rules."""
+        """Raise on a configuration this generator does not run, and on
+        the JAX package's wire rules (its ``_validate_wire``)."""
         if cfg.mode != self.mode:
             raise NotImplementedError(
                 f"mode={cfg.mode!r}: {type(self).__name__} runs mode="
                 f"{self.mode!r}; make_label_generator picks the generator "
                 f"of a mode")
-        if cfg.kmeans.init != "device":
-            raise NotImplementedError("the bit-parity mode (kmeans.init="
-                                      "'reference') is not ported")
         if cfg.save_images:
             raise NotImplementedError("diagnostic panels are not ported")
-        if cfg.upload_format not in ("rgb8", "yuv420"):
+        if cfg.upload_format == "rgb8":
+            return
+        if cfg.upload_format != "yuv420":
             raise ValueError(f"unknown upload_format {cfg.upload_format}")
         h, w = cfg.resize_shape
-        if cfg.upload_format == "yuv420" and (h % 2 or w % 2):
+        if h % 2 or w % 2:
             raise ValueError("yuv420 needs even resize_shape")
+        if cfg.kmeans.init == "reference":
+            raise ValueError("parity mode is bit-exact from raw RGB; "
+                             "yuv420 is lossy: use rgb8")
+        if cfg.mode == "spalign" and not fused_superpixels(cfg):
+            raise ValueError(
+                "yuv420 on the spalign path needs the device SLIC frontend "
+                "(the host superpixel engines take the raw images)")
 
     # --- the device program ---
 
@@ -370,6 +418,29 @@ class LabelGeneratorBase:
                 pack_yuv420(images_uint8)
                 if self.cfg.upload_format == "yuv420" else images_uint8)
         return {"wire": wire, "host": [host], "ready": [(wire, ready)]}
+
+    def _host_superpixels(self, images_uint8: np.ndarray, prepared: dict,
+                          timers: StageTimer, device_images=None):
+        """A host engine's maps of a batch, uploaded at the narrowest
+        integer width that holds their ids; the device maps go to
+        ``prepared["sps"]`` (with their event under ``"ready"``), the host
+        maps to ``"sps_host"`` and the per-image counts to ``"counts"``.
+        SLIC runs on the upload stream: ordered after the uploads it
+        reads, it overlaps the compute stream's work."""
+        stream = (contextlib.nullcontext() if self._upload_stream is None
+                  else torch.cuda.stream(self._upload_stream))
+        with timers.stage("superpixel"), stream:
+            sps, counts = compute_superpixels(
+                images_uint8, self.cfg.superpixel, device=self.device,
+                device_images=device_images)
+        narrow = (np.uint8 if counts.max() < 2 ** 8 else
+                  np.int16 if counts.max() < 2 ** 15 else np.int32)
+        with timers.stage("upload"):
+            host, dev, ready = self._upload(sps.astype(narrow))
+        prepared["host"].append(host)
+        prepared["ready"].append((dev, ready))
+        prepared.update(sps=dev, sps_host=sps, counts=counts)
+        return prepared
 
     def _wait_ready(self, prepared: dict):
         """Make the current stream wait for the unit's uploads (and any
@@ -452,7 +523,10 @@ class LabelGeneratorBase:
             slices = [(i, j) for i, j in slices
                       if not all(_name(dataset, "image_name", idx)
                                  in skip_done for idx in range(i, j))]
-        groups = max(1, cfg.groups_per_dispatch)
+        # the parity mode keeps one group a unit: its host init consumes
+        # the reference's sequential numpy stream batch by batch
+        groups = (1 if cfg.kmeans.init == "reference"
+                  else max(1, cfg.groups_per_dispatch))
         units = [slices[x:x + groups] for x in range(0, len(slices), groups)]
         self._want_cluster_np = bool(save)
         records = []
@@ -557,9 +631,9 @@ class LabelGeneratorBase:
 
 class SpalignLabelGenerator(LabelGeneratorBase):
     """End-to-end label generation over a dataset (reference
-    batch_spalign_kmeans.py main loop :533-548 + estimate_road_mask), on
-    the fused-SLIC path: cfg.superpixel method 'slic' with
-    slic_enforce_connectivity=False."""
+    batch_spalign_kmeans.py main loop :533-548 + estimate_road_mask),
+    with either superpixel frontend (module docstring) and either k-means
+    init."""
 
     mode = "spalign"
 
@@ -568,24 +642,21 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                  device="cuda"):
         super().__init__(cfg, state_dict=state_dict, model_name=model_name,
                          seed=seed, device=device)
-        d = cfg.superpixel.slic_device_downscale
+        if fused_superpixels(cfg):
+            d = cfg.superpixel.slic_device_downscale
+            self._sp_hw = (cfg.resize_shape[0] // d,
+                           cfg.resize_shape[1] // d)
+            self.num_segments = slic_grid_size(
+                *self._sp_hw, cfg.superpixel.n_slic_segments)
+        else:
+            d = 1
+            self.num_segments = cfg.superpixel.max_superpixels
         self._downscale = d
-        self._sp_hw = (cfg.resize_shape[0] // d, cfg.resize_shape[1] // d)
-        self.num_segments = slic_grid_size(
-            *self._sp_hw, cfg.superpixel.n_slic_segments)
-
-    def _validate(self, cfg: LabelGenConfig):
-        super()._validate(cfg)
-        sp = cfg.superpixel
-        if sp.method != "slic" or sp.slic_enforce_connectivity:
-            raise NotImplementedError(
-                "only the device SLIC frontend (method='slic', "
-                "slic_enforce_connectivity=False) is ported; the host "
-                "superpixel engines are not")
 
     def superpixels(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 -> (B, h, w) int32 SLIC maps, at 1/d of the
-        image resolution when slic_device_downscale = d > 1."""
+        """(B, H, W, 3) uint8 -> (B, h, w) int32 SLIC maps of the device
+        SLIC frontend, at 1/d of the image resolution when
+        slic_device_downscale = d > 1."""
         sp = self.cfg.superpixel
         d = self._downscale
         if d > 1:
@@ -596,15 +667,30 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                     compactness=sp.slic_compactness, n_iter=sp.slic_iters,
                     device=self.device)
 
+    def _host_prepare(self, images_uint8: np.ndarray, full_images=None,
+                      timers: Optional[StageTimer] = None) -> dict:
+        """Upload the batch; with a host engine, compute its superpixels
+        (SLIC from the uploaded batch) and upload the maps too."""
+        timers = timers or StageTimer()
+        prepared = super()._host_prepare(images_uint8, full_images, timers)
+        if fused_superpixels(self.cfg):
+            return prepared
+        return self._host_superpixels(images_uint8, prepared, timers,
+                                      device_images=prepared["wire"])
+
     @torch.no_grad()
     def run_unit(self, wire: torch.Tensor, seeds: Sequence[int],
-                 draws: Optional[UnitDraws] = None) -> dict:
+                 draws: Optional[UnitDraws] = None,
+                 sps: Optional[torch.Tensor] = None) -> dict:
         """The whole device program of one unit: G = len(seeds) groups.
-        Returns device tensors: road, road_packed, cluster, assign, the
-        KMeansResult ``res``, per-group ``ok`` and the superpixel maps."""
+        ``sps``: the host engine's maps (ids < max_superpixels); None runs
+        the device SLIC frontend.  Returns device tensors: road,
+        road_packed, cluster, assign, the KMeansResult ``res``, per-group
+        ``ok`` and the superpixel maps."""
         cfg = self.cfg
         images = self.decode(wire)
-        sps = self.superpixels(images)
+        sps = self.superpixels(images) if sps is None else sps.to(
+            torch.int32)
         fmaps = self.features(images)
         g = len(seeds)
         hw = sps.shape[1] * sps.shape[2]
@@ -621,14 +707,85 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}
 
+    @torch.no_grad()
+    def run_parity(self, prepared: dict, timers: StageTimer) -> dict:
+        """The bit-parity unit (one clustering group), every random draw
+        of the reference replayed (batch_spalign_kmeans.py:33-35 seeds;
+        :232 anchors, :148 init): DRN features (float32) to the host ->
+        the anchor shuffle + align of ``reference_superpixel_align`` and
+        the float64 prior, image by image on this thread -> the seed-1111
+        init over the batch's concatenated prior -> the Lloyd loop and
+        painting on the device.  Align and prior are cached in
+        ``prepared``: a retry re-runs only the init and the Lloyd loop,
+        as the reference's retry re-calls only its k-means (:201-205).
+        Returns the device tensors of ``run_unit``."""
+        cfg = self.cfg
+        s = self.num_segments
+        counts = prepared["counts"]
+        b = len(counts)
+        if "parity" not in prepared:
+            with timers.stage("features", self.device):
+                fmaps = self.features(self.decode(prepared["wire"])).to(
+                    torch.float32).cpu().numpy()
+            sps_host = prepared["sps_host"]
+            with timers.stage("align"):
+                feats_c = [reference_superpixel_align(
+                    fmaps[i], sps_host[i], self._parity_pyrng,
+                    n_select=cfg.align.n_anchors,
+                    n_neighbor=cfg.align.n_neighbors,
+                    append_pos=cfg.align.append_pos) for i in range(b)]
+            p = cfg.prior
+            with timers.stage("prior"):
+                prior_c = [superpixel_prior_host(
+                    sps_host[i], p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
+                    p.x_rel_sigma) for i in range(b)]
+            feats = np.zeros((b, s, feats_c[0].shape[1]), np.float32)
+            prior = np.zeros((b, s), np.float32)
+            valid = np.zeros((b, s), bool)
+            for i, n_i in enumerate(counts):
+                feats[i, :n_i] = feats_c[i]
+                prior[i, :n_i] = prior_c[i]
+                valid[i, :n_i] = True
+            prepared["parity"] = (
+                torch.from_numpy(feats).to(self.device).reshape(1, b * s, -1),
+                torch.from_numpy(prior).to(self.device).reshape(1, b * s),
+                torch.from_numpy(valid).to(self.device).reshape(1, b * s),
+                np.concatenate(prior_c))
+        feats, prior, valid, prior_cat = prepared["parity"]
+        a_cat = reference_seed_assignment(prior_cat, cfg.kmeans.n_clusters,
+                                          self._parity_rng)
+        assign0 = np.full((b, s), -1, np.int32)
+        o = 0
+        for i, n_i in enumerate(counts):
+            assign0[i, :n_i] = a_cat[o:o + n_i]
+            o += int(n_i)
+        with timers.stage("device_program", self.device):
+            res = weighted_kmeans_from_init(
+                feats, prior, valid,
+                torch.from_numpy(assign0).to(self.device).reshape(1, -1),
+                k=cfg.kmeans.n_clusters, n_iter=cfg.kmeans.n_iter,
+                check_every=KMEANS_CHECK_EVERY)
+            sps = prepared["sps"].to(torch.int32)
+            assign = res.assignment.reshape(b, s)
+            cluster = paint_clusters(sps, assign)
+            road = cluster == 0
+            ok = road.flatten(1).any(1).all().reshape(1)
+        return {"road": road, "road_packed": pack_mask_bits(road),
+                "cluster": cluster, "assign": assign, "res": res, "ok": ok,
+                "superpixels": sps}
+
     def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
         """Run the unit's device program; the masks and diagnostics start
         their way to the host (pinned, non-blocking), and ``finish_batch``
         waits for them."""
         self._wait_ready(prepared)
-        seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
-        with timers.stage("device_program", self.device):
-            handles = self.run_unit(prepared["wire"], seeds)
+        if self.cfg.kmeans.init == "reference":
+            handles = self.run_parity(prepared, timers)
+        else:
+            seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
+            with timers.stage("device_program", self.device):
+                handles = self.run_unit(prepared["wire"], seeds,
+                                        sps=prepared.get("sps"))
         res = handles["res"]
         fetch = {"road_packed": handles["road_packed"], "ok": handles["ok"],
                  "n_iter": res.n_iter, "converged": res.converged,
@@ -641,9 +798,10 @@ class SpalignLabelGenerator(LabelGeneratorBase):
     def finish_batch(self, prepared: dict, handles: dict,
                      timers: StageTimer):
         """Wait for the unit's results; when a group has an all-empty
-        road mask, re-run the whole unit with fresh seeds, up to
-        cfg.kmeans.max_retries runs in all (the reference's retry at
-        :201-205, whose result it discarded)."""
+        road mask, re-run the whole unit with fresh seeds (the parity
+        mode: the next init of its stream), up to cfg.kmeans.max_retries
+        runs in all (the reference's retry at :201-205, whose result it
+        discarded)."""
         cfg = self.cfg
         tries = max(1, cfg.kmeans.max_retries)
         retries = 0
@@ -655,8 +813,11 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                 retries += 1
                 handles.update(self.dispatch_batch(prepared, timers))
         handles["host"] = got
+        n = handles["road"].shape[0]
+        counts = prepared.get("counts")
         diag = {
-            "n_superpixels": [self.num_segments] * handles["road"].shape[0],
+            "n_superpixels": (counts.tolist() if counts is not None
+                              else [self.num_segments] * n),
             "retries": retries,
             "_per_group": {
                 "kmeans_iters": got["n_iter"].astype(int).tolist(),

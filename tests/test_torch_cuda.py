@@ -206,6 +206,80 @@ def test_assign_never_takes_the_plain_path(cuda, monkeypatch):
     assert int(out.max()) < c0.shape[1]
 
 
+# ---- the host superpixel engines and the native scorer on the card ----
+
+
+def _host_engine_generators(sp):
+    from spalign_tpu_torch import config
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+
+    cfg = config.LabelGenConfig(batchsize=3, resize_shape=(112, 112),
+                                model_dtype="float32", save_masks=False,
+                                superpixel=config.SuperpixelConfig(**sp))
+    return (SpalignLabelGenerator(cfg),
+            SpalignLabelGenerator(cfg, device="cpu"))
+
+
+def _scenes(n, shape=(128, 256)):
+    from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
+
+    return SyntheticRoadScenes(n=n, full_shape=shape, seed=17)
+
+
+@pytest.mark.parametrize("sp", [
+    dict(method="felzenszwalb", felzenszwalb_scale=100.0,
+         max_superpixels=128),
+    dict(method="slic", n_slic_segments=40, slic_iters=4,
+         max_superpixels=128)], ids=["felzenszwalb", "slic_connectivity"])
+def test_host_engine_unit_equals_cpu_run(cuda, sp):
+    """The same unit on the card and on the CPU with the same draws: the
+    superpixel maps are equal (host engines; SLIC's kernel is bit-equal
+    to its plain version), and the cluster maps agree on >= 0.99 of the
+    pixels: cuDNN's float32 convolutions and the CPU's sum in other
+    orders, and one superpixel moved by a near-tie is ~1% of a 112^2
+    image.  SLIC launches the Lloyd kernel once."""
+    from spalign_tpu_torch.pipeline.label_gen import UnitDraws, draw_unit
+
+    gpu, cpu = _host_engine_generators(sp)
+    imgs = _scenes(3).resized_batch(range(3), (112, 112))[0]
+    before = tsf.slic_lloyd.launches
+    prep_g, prep_c = gpu._host_prepare(imgs), cpu._host_prepare(imgs)
+    torch.cuda.synchronize()
+    assert tsf.slic_lloyd.launches == before + (sp["method"] == "slic")
+    np.testing.assert_array_equal(prep_g["sps_host"], prep_c["sps_host"])
+    draws = draw_unit([11], 3, 112 * 112, 128, "cpu")
+    gpu._wait_ready(prep_g)
+    out_g = gpu.run_unit(prep_g["wire"], [11], sps=prep_g["sps"],
+                         draws=UnitDraws(*(t.to(cuda) for t in draws)))
+    out_c = cpu.run_unit(prep_c["wire"], [11], draws=draws,
+                         sps=prep_c["sps"])
+    assert (out_g["cluster"].cpu() == out_c["cluster"]).float().mean() >= 0.99
+
+
+def test_native_scorer_in_the_card_label_loop(cuda, monkeypatch):
+    """The host loop scores every image with the native scorer, never the
+    plain one, while the units run on the card."""
+    from spalign_tpu_torch import native
+    from spalign_tpu_torch.pipeline import label_gen as tlg
+
+    def boom(*a, **k):
+        raise AssertionError("plain scorer called")
+
+    calls = []
+    real = native.confusion_vs_labelids
+
+    def spy(pred, labels):
+        calls.append(pred.shape)
+        return real(pred, labels)
+
+    monkeypatch.setattr(tlg, "host_confusion_reference", boom)
+    monkeypatch.setattr(native, "confusion_vs_labelids", spy)
+    gpu, _ = _host_engine_generators(dict(max_superpixels=256))
+    recs = gpu.process_dataset(_scenes(6), save=False)
+    assert len(recs) == len(calls) == 6
+    assert all(np.isfinite(r["road_iou"]) for r in recs)
+
+
 # ---- the SegNet pooling kernels (csrc/pooling.cu) ----
 
 

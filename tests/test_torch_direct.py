@@ -9,7 +9,8 @@ Tolerances: the resize and the refine are exact (integer work); the
 pixel k-means equals JAX's assignment on the given features; road masks
 of a whole unit agree on >= 0.99 of the pixels (the DRN features differ
 by float rounding, and the overlaps masks rest on the two SLIC sweeps,
-which agree on >= 0.995 of the pixels)."""
+which agree on >= 0.995 of the pixels), with the device SLIC frontend
+and with the host engines (felzenszwalb maps equal JAX's)."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from spalign_tpu.config import KMeansConfig as JaxKMeansConfig
 from spalign_tpu.config import LabelGenConfig as JaxLabelGenConfig
 from spalign_tpu.config import SuperpixelConfig as JaxSuperpixelConfig
 from spalign_tpu.data.synthetic import SyntheticRoadScenes
@@ -161,28 +163,31 @@ def test_direct_generator_matches_jax(weights, scenes):
                                   np.asarray(res.n_iter))
 
 
-def _overlaps_pair(weights, scenes, downscale=1):
+def _overlaps_pair(weights, scenes, downscale=1, sp=None):
     """The JAX and the port's overlaps masks of one batch with the same
-    seed and JAX's uniforms, and the port's superpixel maps."""
+    seed and JAX's uniforms, and the port's superpixel maps.  ``sp``:
+    SuperpixelConfig fields (default SP at ``downscale``)."""
     variables, sd = weights
     _, imgs, _, full = scenes
     imgs, full = imgs[:B], full[:B]
-    jsp = JaxSuperpixelConfig(**dict(SP, slic_device_downscale=downscale))
+    sp = dict(SP, slic_device_downscale=downscale) if sp is None else sp
+    max_sp = tcfg.SuperpixelConfig(**sp).max_superpixels
     jgen = jdirect.make_label_generator(JaxLabelGenConfig(
-        mode="overlaps", superpixel=jsp, **COMMON), variables=variables)
+        mode="overlaps", superpixel=JaxSuperpixelConfig(**sp), **COMMON),
+        variables=variables)
     prep = jgen._host_prepare(imgs, full, JaxStageTimer())
     seeds = np.asarray([7], np.uint32)
     road, _, _ = jgen._fused_program()(prep["imgs_dev"], seeds, np.int32(4))
-    want, _ = jdirect._refine_packed_program(256, downscale)(
+    want, _ = jdirect._refine_packed_program(max_sp, downscale)(
         road, prep["full_sps"], 0.01)
-    tsp = tcfg.SuperpixelConfig(**dict(SP, slic_device_downscale=downscale))
-    tgen = tdirect.make_label_generator(_port_cfg("overlaps", superpixel=tsp),
-                                        state_dict=sd, device="cpu")
+    tgen = tdirect.make_label_generator(
+        _port_cfg("overlaps", superpixel=tcfg.SuperpixelConfig(**sp)),
+        state_dict=sd, device="cpu")
     tprep = tgen._host_prepare(imgs, full)
     out = tgen.run_unit(tprep["wire"], list(seeds),
                         uniforms=_jax_uniforms(seeds, B * 14 * 14))
     got, packed = tdirect.refine_and_pack(
-        out["road"], tprep["full_sps"], 0.01, 256, downscale)
+        out["road"], tprep["full_sps"], 0.01, max_sp, downscale)
     return np.asarray(want), got.numpy(), packed.numpy(), tprep
 
 
@@ -241,15 +246,56 @@ def test_process_dataset_both_modes(weights, scenes):
 
 
 @pytest.mark.parametrize("mode,change", [
-    ("overlaps", dict(superpixel=tcfg.SuperpixelConfig(method="slic"))),
-    ("overlaps", dict(superpixel=tcfg.SuperpixelConfig())),
-    ("direct", dict(kmeans=tcfg.KMeansConfig(init="reference"))),
     ("direct", dict(save_images=True)),
+    ("overlaps", dict(save_images=True)),
 ])
 def test_unported_paths_raise(mode, change):
     cfg = dataclasses.replace(_port_cfg(mode), **change)
     with pytest.raises(NotImplementedError):
         tdirect.make_label_generator(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("sp", [dict(method="slic"), dict()],
+                         ids=["slic_connectivity", "felzenszwalb"])
+def test_overlaps_host_engines_match_jax(weights, scenes, sp):
+    """The overlaps mode's reference default (felzenszwalb) and SLIC with
+    the connectivity pass: maps computed on the host and uploaded, the
+    refine at K = max_superpixels; masks agree with JAX's on >= 0.99."""
+    want, got, _, prep = _overlaps_pair(weights, scenes, sp=sp)
+    assert got.shape == want.shape == (B, *FULL)
+    assert (got == want).mean() >= 0.99
+    sps = prep["full_sps"].numpy()
+    assert prep["sps_upscale"] == 1
+    np.testing.assert_array_equal(prep["counts"], sps.max(axis=(1, 2)) + 1)
+    for b in range(B):
+        for s in np.unique(sps[b]):
+            vals = got[b][sps[b] == s]
+            assert vals.all() or not vals.any()
+
+
+def test_direct_parity_init_runs_like_jax(weights, scenes):
+    """The direct mode never reads the k-means init: under 'reference' it
+    runs as JAX's does (float32 DRN, rgb8 wire, one group a unit)."""
+    variables, sd = weights
+    ds, imgs, _, _ = scenes
+    kw = dict(COMMON, upload_format="rgb8", groups_per_dispatch=2)
+    jgen = jdirect.make_label_generator(JaxLabelGenConfig(
+        mode="direct", kmeans=JaxKMeansConfig(init="reference"), **kw),
+        variables=variables)
+    seeds = np.asarray([5], np.uint32)
+    prep = jgen._host_prepare(imgs[:B], None, JaxStageTimer())
+    road, _, _ = jax.device_get(jgen._fused_program()(
+        prep["imgs_dev"], seeds, np.int32(4)))
+    tgen = tdirect.make_label_generator(tcfg.LabelGenConfig(
+        mode="direct", kmeans=tcfg.KMeansConfig(init="reference"), **kw),
+        state_dict=sd, device="cpu")
+    assert next(tgen.model.parameters()).dtype == torch.float32
+    out = tgen.run_unit(tgen._host_prepare(imgs[:B])["wire"], list(seeds),
+                        uniforms=_jax_uniforms(seeds, B * 14 * 14))
+    assert (out["road"].numpy() == np.asarray(road)).mean() >= 0.99
+    recs = tgen.process_dataset(ds, save=False)
+    assert len(recs) == 2 * B
+    assert all(isinstance(r["kmeans_iters"], int) for r in recs)
 
 
 def test_generators_run_their_own_mode():
@@ -269,11 +315,28 @@ def test_compute_superpixels_device_slic_only(scenes):
     maps, counts = compute_superpixels(
         full, tcfg.SuperpixelConfig(**SP), device="cpu")
     assert maps.shape == (1, *FULL) and counts.tolist() == [36]
-    with pytest.raises(NotImplementedError):
-        compute_superpixels(full, tcfg.SuperpixelConfig(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        compute_superpixels(full, tcfg.SuperpixelConfig(method="slic"),
-                            device="cpu")
+
+
+@pytest.mark.parametrize("sp", [dict(), dict(method="slic")],
+                         ids=["felzenszwalb", "slic_connectivity"])
+def test_compute_superpixels_host_engines_equal_jax(scenes, sp):
+    """Felzenszwalb maps equal JAX's; SLIC with the connectivity pass
+    agrees on >= 0.995 of the pixels (the device SLIC bar)."""
+    from spalign_tpu.pipeline.superpixels import \
+        compute_superpixels as jax_compute_superpixels
+
+    full = scenes[3][:2]
+    maps, counts = compute_superpixels(full, tcfg.SuperpixelConfig(**sp),
+                                       device="cpu")
+    want, want_counts = jax_compute_superpixels(full,
+                                                JaxSuperpixelConfig(**sp))
+    assert maps.shape == (2, *FULL) and maps.dtype == np.int32
+    if not sp:
+        np.testing.assert_array_equal(maps, want)
+        np.testing.assert_array_equal(counts, want_counts)
+    else:
+        assert (maps == want).mean() >= 0.995
+    np.testing.assert_array_equal(counts, maps.max(axis=(1, 2)) + 1)
 
 
 CLI = ["--synthetic", "4", "--synthetic_shape", "128", "256",
@@ -323,10 +386,27 @@ def test_cli_loads_a_pth_checkpoint(tmp_path, monkeypatch):
         assert torch.equal(got[name], value), name
 
 
+@pytest.mark.parametrize("extra", [["--kmeans_init", "reference"],
+                                   ["--superpixel_method", "felzenszwalb"]],
+                         ids=["parity", "felzenszwalb"])
+def test_cli_runs_parity_and_felzenszwalb(extra, tmp_path):
+    """The options that raised before: the CLI builds JAX's configuration
+    from the same flags and labels every scene."""
+    from spalign_tpu.cli import label_gen as jcli
+    from spalign_tpu.config import flatten as jax_flatten
+
+    from spalign_tpu_torch.config import flatten
+
+    args = CLI + ["--mode", "overlaps", "--out_dir", str(tmp_path)] + extra
+    want = jax_flatten(jcli.config_from_args(jcli.get_args(
+        [a for a in args if a not in ("--device", "cpu")])))
+    assert flatten(cli.config_from_args(cli.get_args(args))) == want
+    recs = cli.main(args)
+    assert len(recs) == 4 and all(np.isfinite(r["road_iou"]) for r in recs)
+
+
 @pytest.mark.parametrize("extra,error", [
-    (["--kmeans_init", "reference"], NotImplementedError),
     (["--save_images"], NotImplementedError),
-    (["--superpixel_method", "felzenszwalb"], NotImplementedError),
     (["--synthetic", "0", "--cityscapes_dir", "/nonexistent"],
      NotImplementedError),
     (["--weights", "drn.pkl"], NotImplementedError),

@@ -61,6 +61,8 @@ def test_the_scan_sees_the_whole_package():
             "spalign_tpu_torch/pipeline/label_gen.py",
             "spalign_tpu_torch/pipeline/direct.py",
             "spalign_tpu_torch/pipeline/superpixels.py",
+            "spalign_tpu_torch/native.py",
+            "spalign_tpu_torch/ops/parity.py",
             "spalign_tpu_torch/eval/results.py",
             "spalign_tpu_torch/cli/common.py",
             "spalign_tpu_torch/cli/label_gen.py",

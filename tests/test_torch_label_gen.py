@@ -7,7 +7,9 @@ segments, 4 sweeps) and the port gets the JAX package's random draws,
 rebuilt here as ``_align_and_prior`` makes them.  Tolerances: cluster
 maps agree on >= 0.99 of pixels (see the test for the one known source
 of difference); road IoU of a whole run within 0.1 with the port's own
-draws; scoring exact."""
+draws; scoring exact.  The host superpixel engines and the parity mode
+run on the rgb8 wire and agree with JAX on >= 0.99 of the pixels too
+(test_host_paths_run_like_jax)."""
 
 import dataclasses
 
@@ -24,6 +26,7 @@ from spalign_tpu.kernels.slic import slic as jax_slic
 from spalign_tpu.kernels.slic import slic_grid_size as jax_grid_size
 from spalign_tpu.pipeline import label_gen as jlg
 from spalign_tpu.pipeline.wire import decode_yuv420 as jax_decode
+from spalign_tpu.utils.timers import StageTimer as JaxStageTimer
 from spalign_tpu_torch import config as tcfg
 from spalign_tpu_torch.convert.from_jax import drn_state_dict_from_flax
 from spalign_tpu_torch.ops.segments import anchor_key_bits
@@ -160,8 +163,8 @@ def test_retry_reruns_the_unit(pair, monkeypatch):
     calls = []
     real = gen.run_unit
 
-    def fake(wire, seeds, draws=None):
-        out = real(wire, seeds, draws)
+    def fake(wire, seeds, draws=None, sps=None):
+        out = real(wire, seeds, draws, sps)
         calls.append(list(seeds))
         if len(calls) == 1:
             out["ok"] = torch.zeros_like(out["ok"])
@@ -200,17 +203,68 @@ def test_downscaled_superpixels_run(pair):
     assert diag["kmeans_iters"] >= 1
 
 
-@pytest.mark.parametrize("change", [
-    dict(mode="direct"),
-    dict(kmeans=tcfg.KMeansConfig(init="reference")),
-    dict(superpixel=tcfg.SuperpixelConfig()),
-    dict(superpixel=tcfg.SuperpixelConfig(
-        **dict(SP, slic_enforce_connectivity=True))),
-])
+@pytest.mark.parametrize("change", [dict(mode="direct"),
+                                    dict(save_images=True)])
 def test_unported_paths_raise(change):
     cfg = dataclasses.replace(_port_cfg(), **change)
     with pytest.raises(NotImplementedError):
         tlg.SpalignLabelGenerator(cfg, device="cpu")
+
+
+def _to_jax(cfg):
+    """The JAX package's LabelGenConfig with the port config's fields."""
+    import spalign_tpu.config as jconfig
+
+    kw = {}
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if dataclasses.is_dataclass(v):
+            v = getattr(jconfig, type(v).__name__)(**dataclasses.asdict(v))
+        kw[f.name] = v
+    return jconfig.LabelGenConfig(**kw)
+
+
+@pytest.mark.parametrize("change", [
+    dict(kmeans=tcfg.KMeansConfig(init="reference")),
+    dict(superpixel=tcfg.SuperpixelConfig()),
+    dict(superpixel=tcfg.SuperpixelConfig(
+        **dict(SP, slic_enforce_connectivity=True))),
+], ids=["parity", "felzenszwalb", "slic_connectivity"])
+def test_host_paths_run_like_jax(pair, change):
+    """The parity mode and the host superpixel engines, on the rgb8 wire
+    (both packages refuse yuv420 for them), one group of B images.  The
+    parity mode replays the same streams from the same seed; the host
+    engines get JAX's draws at K = max_superpixels.  Cluster and road
+    maps agree on >= 0.99 of the pixels (float rounding of the DRN)."""
+    jgen0, _, sd, ds = pair
+    cfg = dataclasses.replace(_port_cfg(upload_format="rgb8",
+                                        groups_per_dispatch=1), **change)
+    jgen = jlg.SpalignLabelGenerator(_to_jax(cfg),
+                                     variables=jgen0.variables, seed=777)
+    tgen = tlg.SpalignLabelGenerator(cfg, state_dict=sd, seed=777,
+                                     device="cpu")
+    imgs, _ = ds.resized_batch(range(B), HW)
+    if cfg.kmeans.init == "reference":
+        road, cluster, diag, _ = jgen.run_batch(imgs)
+        t_road, t_cluster, t_diag, _ = tgen.run_batch(imgs)
+        assert t_diag["n_superpixels"] == diag["n_superpixels"]
+        assert t_diag["kmeans_iters"] >= 1
+    else:
+        seeds = np.asarray([11], np.uint32)
+        prep = jgen._host_prepare(imgs, None, JaxStageTimer())
+        road, _, cluster, _, res, ok = jax.device_get(jgen._fused_program()(
+            prep["imgs_dev"], prep["sps_dev"], seeds, np.int32(4)))
+        tprep = tgen._host_prepare(imgs)
+        assert tgen.num_segments == cfg.superpixel.max_superpixels
+        assert (tprep["sps_host"] == prep["sps_host"]).mean() >= 0.995
+        out = tgen.run_unit(tprep["wire"], list(seeds),
+                            draws=_jax_draws(seeds, HW[0] * HW[1],
+                                             tgen.num_segments),
+                            sps=tprep["sps"])
+        t_road, t_cluster = out["road"], out["cluster"]
+        np.testing.assert_array_equal(out["ok"].numpy(), np.asarray(ok))
+    assert (t_cluster.numpy() == np.asarray(cluster)).mean() >= 0.99
+    assert (t_road.numpy() == np.asarray(road)).mean() >= 0.99
 
 
 def test_spalign_cluster_equals_jax():
