@@ -9,8 +9,9 @@ Run from the root of the repository on a machine with one CUDA GPU and
   device       the card (nvidia-smi name and power limit), CUDA, PyTorch
   build        nvcc builds of csrc/slic_lloyd.cu, csrc/slic_assign.cu and
                csrc/pooling.cu and the g++ build of the host library
-               csrc/host_ops.cpp, run together; ptxas's resource use per
-               kernel
+               csrc/host_ops.cpp (felzenszwalb, connectivity, the scorer,
+               the yuv420 pack, PNG un-filtering, the cubic resize), run
+               together; ptxas's resource use per kernel
   slic_lloyd   the SLIC Lloyd kernel against its plain PyTorch version on
                the inputs the main path gives it (150 x 224^2, 100
                segments, 10 sweeps): labels bit-equal; its cluster size;
@@ -57,7 +58,8 @@ Run from the root of the repository on a machine with one CUDA GPU and
                ground truth: a warm-up batch, then 3 timed batches with every
                count set to 0 just before and read just after (11 assignment
                launches a batch, 10 of them sums-only); masks full
-               resolution and not empty; one batch with
+               resolution and not empty; the full-frame yuv420 pack, C++
+               and numpy, timed and equal; one batch with
                slic_device_downscale=2 (2x2-block-constant masks)
   direct_path  the direct mode at the bench unit (5 groups x 30 at 224^2,
                yuv420): a warm-up unit, then 3 timed units
@@ -71,9 +73,12 @@ Run from the root of the repository on a machine with one CUDA GPU and
   host_superpixels_path  SpalignLabelGenerator with the default
                SuperpixelConfig() (felzenszwalb, max_superpixels 1024) at
                the bench unit on the rgb8 wire: a warm-up unit, 3 timed
-               units; no road mask empty, counts within the bound; then one
-               unit with SLIC + the connectivity pass, which must launch
-               the Lloyd kernel
+               units; no road mask empty, counts within the bound, the
+               peak device memory below the unchunked align's 23.1 GB; then
+               one unit with SLIC + the connectivity pass, which must launch
+               the Lloyd kernel, and one default unit at max_superpixels
+               4096, which must complete; superpixel_align at the unit's
+               shapes chunked and in one chunk: equal, device ms and peak
   parity_path  one batch of 30 in the bit-parity mode (felzenszwalb,
                float32 DRN); its parity stages re-run on the CPU from the
                card's features and maps must give the same cluster maps
@@ -81,6 +86,18 @@ Run from the root of the repository on a machine with one CUDA GPU and
                30 frames at 1024x2048, max_superpixels the largest count
                they give: a warm-up and a timed batch; then one batch with
                SLIC + the connectivity pass (11 assignment launches)
+  real_files   60 synthetic 1024x2048 scenes written by the port's PNG
+               encoder as a Cityscapes tree and zips; decode must give the
+               frames back, the cubic resize its plain version and the
+               golden hash (GOLDEN_RESIZE_SHA256), the C++ yuv420 pack the
+               numpy pack (a unit of 150 at 224^2 and 30 full frames, both
+               timed); then cli.label_gen on --cityscapes_dir (the default
+               felzenszwalb), on the zip pair with SLIC + connectivity (the
+               Lloyd kernel must launch) and on an image file list without
+               labels (its PNG masks must equal the .npy masks); then
+               cli.train on the image zip and the directory run's masks at
+               the reference recipe for 12 steps, evaluated on 8 frames at
+               1024x2048 (the pooling kernels must launch)
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -113,6 +130,15 @@ OVERLAPS_BATCHES = 3
 POOL_LEVELS = [(8, 512 >> i, 1024 >> i, 64) for i in range(4)]
 SEGNET_SHAPE = (8, 64, 128, 512)  # SegNet's fourth block at 512x1024
 TRAIN_WARMUP, TRAIN_TIMED = 2, 20
+# the default felzenszwalb unit's peak device memory with the align
+# unchunked (PERF.md: chip_smoke, PR 5, run 2), and the segment bound of
+# the unit that the chunked align must complete
+PEAK_BEFORE_CHUNKING = 23_111_624_704
+S_LARGE = 4096
+# real_files: the fake Cityscapes tree, the frames of its val zips and of
+# its no-label file list, and the train CLI's steps
+REAL_SCENES, VAL_FRAMES, LIST_FRAMES, REAL_TRAIN_STEPS = 60, 8, 30, 12
+CITIES = ("aachen", "bochum", "bremen")
 POOL_SOURCE = "spalign_tpu_torch/csrc/pooling.cu"
 POOL_REPLACES = {"pool2x2": "spalign_tpu/kernels/pooling_pallas.py:83",
                  "scatter2x2": "spalign_tpu/kernels/pooling_pallas.py:119",
@@ -126,6 +152,10 @@ GOLDEN_FRAMES_SHA256 = (
     "1dad725882efc7f10d2ac17610918e0b70923d856b5c6a2ab4c3c0bd70405c85")
 GOLDEN_MAPS_SHA256 = (
     "122c977460887e78740a4ad6cdff34157559dee94c065db5af9b66fab94688f2")
+# golden_frames() resized to 224x224 by the host library's cubic resize
+# (tests/test_torch_png.py holds it to the port and its plain version)
+GOLDEN_RESIZE_SHA256 = (
+    "bec7bd2981752ef19798c2d37cf5d7c1bfe3ff8d7260f4a9f562eb9d61181c61")
 
 
 def emit(obj):
@@ -736,14 +766,15 @@ def slic_assign_phase(frames_full, frames512, sp):
     the two engines at 30 x 512x1024."""
     import torch
 
+    from spalign_tpu_torch import native
     from spalign_tpu_torch.kernels import slic_assign as sa
     from spalign_tpu_torch.kernels import slic_fused
     from spalign_tpu_torch.kernels.slic import slic_inputs, slic_per_sweep
-    from spalign_tpu_torch.pipeline.wire import decode_yuv420, pack_yuv420
+    from spalign_tpu_torch.pipeline.wire import decode_yuv420
 
     dev = torch.device("cuda")
     seg, comp, n_iter = sp.n_slic_segments, sp.slic_compactness, sp.slic_iters
-    wire = torch.from_numpy(pack_yuv420(frames_full)).to(dev)
+    wire = torch.from_numpy(native.pack_yuv420(frames_full)).to(dev)
     images = decode_yuv420(wire, FULL_HW)
     del wire
     lab, c0, shape = slic_inputs(images, seg, comp)
@@ -900,8 +931,8 @@ def overlaps_phase(frames_full, labels_full):
     """The overlaps mode on the 1024x2048 frames, batch 30."""
     import torch
 
+    from spalign_tpu_torch import native
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
-    from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
     from spalign_tpu_torch.pipeline.direct import make_label_generator
     from spalign_tpu_torch.pipeline.wire import pack_yuv420
 
@@ -911,8 +942,7 @@ def overlaps_phase(frames_full, labels_full):
                          upload_format="yuv420", save_masks=False,
                          overlap_threshold=0.01, superpixel=sp)
     t0 = time.time()
-    frames = np.stack([resize_bicubic_u8(f, cfg.resize_shape)
-                       for f in frames_full])
+    frames = native.resize_cubic_u8(frames_full, cfg.resize_shape)
     t_resize = time.time() - t0
     n = len(frames_full)
     gen = make_label_generator(cfg)
@@ -934,8 +964,11 @@ def overlaps_phase(frames_full, labels_full):
     road, _, diag, _ = gen.run_batch(frames, full_images=frames_full)
     road_shape = list(road.shape)
     t0 = time.time()
-    pack_yuv420(frames_full)
+    packed = native.pack_yuv420(frames_full)
     t_pack = time.time() - t0
+    t0 = time.time()
+    plain = pack_yuv420(frames_full)
+    t_pack_plain = time.time() - t0
 
     half = make_label_generator(dataclasses.replace(
         cfg, superpixel=dataclasses.replace(sp, slic_device_downscale=2)))
@@ -953,6 +986,8 @@ def overlaps_phase(frames_full, labels_full):
            "n_superpixels": diag["n_superpixels"][0],
            "mask_shape": road_shape, "resize_seconds": t_resize,
            "full_frame_pack_seconds": t_pack,
+           "full_frame_pack_plain_seconds": t_pack_plain,
+           "full_frame_pack_equal": bool(np.array_equal(packed, plain)),
            "downscale2_mask_shape": list(road2.shape),
            "downscale2_block_constant": bool(torch.equal(road2, block))}
     emit(out)
@@ -963,6 +998,7 @@ def overlaps_phase(frames_full, labels_full):
     check(min(predicted) > 0, "no all-empty road mask")
     check(all(np.isfinite(ious)), "finite road IoU")
     check(road_shape == [n, *FULL_HW], "full-resolution masks")
+    check(out["full_frame_pack_equal"], "C++ pack equals the numpy pack")
     check(out["downscale2_mask_shape"] == [n, *FULL_HW]
           and out["downscale2_block_constant"],
           "slic_device_downscale=2: 2x2-block-constant full-res masks")
@@ -1098,11 +1134,64 @@ def host_library_phase(frames, labels, frames_full, cfg):
     return out
 
 
+
+def align_chunking(frames, cfg):
+    """superpixel_align at the default felzenszwalb unit's shapes (150
+    images, S = max_superpixels, 10 anchors, 28x28x512 features, the
+    frames' felzenszwalb maps): device ms (CUDA events, median of 5),
+    host ms per call and peak memory, chunked as the port runs it and
+    in one chunk of the whole unit (the align before the chunking);
+    the two results must be equal."""
+    import torch
+
+    from spalign_tpu_torch.ops import align
+    from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
+
+    dev = torch.device("cuda")
+    unit = frames[np.arange(UNIT) % len(frames)]
+    sps, _ = compute_superpixels(unit, cfg.superpixel, device=dev)
+    sps = torch.from_numpy(sps.astype(np.int32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(0)
+    fmaps = torch.randn((UNIT, 28, 28, 512), generator=g, device=dev)
+    s = cfg.superpixel.max_superpixels
+
+    def run():
+        return align.superpixel_align(fmaps, sps, cfg.align.n_anchors, s,
+                                      generator=torch.Generator(
+                                          device=dev).manual_seed(1))
+
+    out, results = {}, {}
+    default = align.ALIGN_CHUNK_BYTES
+    for name, budget in (("chunked", default), ("one_chunk", 1 << 50)):
+        align.ALIGN_CHUNK_BYTES = budget
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            results[name] = run()
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            ms, _ = cuda_ms(run, reps=5)
+            t0 = time.perf_counter()
+            run()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+            out[name] = {"images_per_chunk": align.align_chunk(
+                s, cfg.align.n_anchors, 512), "device_ms": ms,
+                "host_ms_per_call": host_ms, "peak_bytes": peak}
+        finally:
+            align.ALIGN_CHUNK_BYTES = default
+        torch.cuda.empty_cache()
+    out["equal"] = all(torch.equal(a, b) for a, b in zip(
+        results["chunked"], results["one_chunk"]))
+    return out
+
 def host_superpixels_phase(frames, labels):
     """SpalignLabelGenerator with the default SuperpixelConfig()
     (felzenszwalb 300 / 0.8 / 20, max_superpixels 1024) at the bench unit
-    on the rgb8 wire: a warm-up unit, 3 timed units; then one unit with
-    SLIC + the connectivity pass."""
+    on the rgb8 wire: a warm-up unit, 3 timed units and their peak device
+    memory; then one unit with SLIC + the connectivity pass, and one
+    default unit at max_superpixels S_LARGE."""
     import torch
 
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
@@ -1125,13 +1214,35 @@ def host_superpixels_phase(frames, labels):
                                          slic_iters=10)))
     slic_records, slic = drive_summary(gen, Frames(frames, labels, UNIT),
                                        UNIT)
+    del gen
+    torch.cuda.empty_cache()
+
+    # the align chunked over images: one default unit at S = 4096
+    gen = SpalignLabelGenerator(dataclasses.replace(
+        cfg, superpixel=SuperpixelConfig(max_superpixels=S_LARGE)))
+    torch.cuda.reset_peak_memory_stats()
+    large_records, large = drive_summary(gen, Frames(frames, labels, UNIT),
+                                         UNIT)
+    large["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del gen
+    torch.cuda.empty_cache()
+    chunking = align_chunking(frames, cfg)
     out = {"phase": "host_superpixels_path", "units": 3, "unit": UNIT,
            "wire": cfg.upload_format,
            "superpixel": dataclasses.asdict(cfg.superpixel), **timed,
            "min_predicted_road_px": int(min(predicted)),
            "retries": int(sum(r["retries"] for r in records[::UNIT])),
-           "peak_memory_bytes": peak, "slic_connectivity": slic}
+           "peak_memory_bytes": peak,
+           "peak_memory_bytes_before_chunking": PEAK_BEFORE_CHUNKING,
+           "align_chunking": chunking, "slic_connectivity": slic,
+           f"max_superpixels_{S_LARGE}": large}
     emit(out)
+    check(peak < PEAK_BEFORE_CHUNKING,
+          "the chunked align lowers the default unit's peak")
+    check(chunking["equal"], "the chunked align equals one chunk")
+    check(len(large_records) == UNIT
+          and all(np.isfinite(r["road_iou"]) for r in large_records),
+          f"a unit at max_superpixels {S_LARGE} completes")
     check(len(records) == 3 * UNIT, "one record per image")
     check(min(predicted) > 0, "no all-empty road mask")
     check(all(np.isfinite(r["road_iou"]) for r in records + slic_records),
@@ -1214,8 +1325,8 @@ def overlaps_felzenszwalb_phase(frames_full, labels_full):
     reference's default frontend), batch 30: max_superpixels set to the
     largest count the frames give, a warm-up and a timed batch; then one
     batch with SLIC + the connectivity pass."""
+    from spalign_tpu_torch import native
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
-    from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
     from spalign_tpu_torch.pipeline.direct import make_label_generator
     from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 
@@ -1228,8 +1339,7 @@ def overlaps_felzenszwalb_phase(frames_full, labels_full):
     cfg = LabelGenConfig(mode="overlaps", batchsize=n, save_masks=False,
                          superpixel=dataclasses.replace(
                              sp, max_superpixels=bound))
-    frames = np.stack([resize_bicubic_u8(f, cfg.resize_shape)
-                       for f in frames_full])
+    frames = native.resize_cubic_u8(frames_full, cfg.resize_shape)
     dataset = Frames(frames, labels_full, n, full=frames_full)
     gen = make_label_generator(cfg)
     gen.process_dataset(dataset, save=False)
@@ -1261,6 +1371,231 @@ def overlaps_felzenszwalb_phase(frames_full, labels_full):
     return out
 
 
+
+def write_fake_cityscapes(root):
+    """REAL_SCENES synthetic scenes at 1024x2048 written by the port's PNG
+    encoder as a Cityscapes tree (leftImg8bit/train/<city>/..., gtFine/
+    train/<city>/...) and its image and label zips; the first VAL_FRAMES
+    again as the val zips.  Returns (frames, labelIds, paths, seconds
+    to make the scenes, seconds to encode and zip them)."""
+    import zipfile
+
+    from spalign_tpu_torch.data.png import encode_png
+    from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
+
+    ds = SyntheticRoadScenes(n=REAL_SCENES, full_shape=FULL_HW, seed=29)
+    t0 = time.time()
+    with ThreadPoolExecutor(8) as pool:
+        items = list(pool.map(ds.__getitem__, range(REAL_SCENES)))
+    t_scenes = time.time() - t0
+    keys = [f"{CITIES[i % len(CITIES)]}_000000_{i:06d}"
+            for i in range(REAL_SCENES)]
+
+    def write(i):
+        img, lab = items[i]
+        city = CITIES[i % len(CITIES)]
+        out = []
+        for sub, name, arr in (
+                ("leftImg8bit", f"{keys[i]}_leftImg8bit.png", img),
+                ("gtFine", f"{keys[i]}_gtFine_labelIds.png", lab)):
+            member = f"{sub}/train/{city}/{name}"
+            os.makedirs(os.path.join(root, os.path.dirname(member)),
+                        exist_ok=True)
+            with open(os.path.join(root, member), "wb") as f:
+                f.write(encode_png(arr))
+            out.append(member)
+        return out
+
+    t0 = time.time()
+    with ThreadPoolExecutor(8) as pool:
+        members = list(pool.map(write, range(REAL_SCENES)))
+    paths = {}
+    for name, idx, col in (("img_zip", REAL_SCENES, 0),
+                           ("label_zip", REAL_SCENES, 1),
+                           ("val_img_zip", VAL_FRAMES, 0),
+                           ("val_label_zip", VAL_FRAMES, 1)):
+        paths[name] = os.path.join(root, f"{name}.zip")
+        with zipfile.ZipFile(paths[name], "w") as zf:
+            for m in members[:idx]:
+                zf.write(os.path.join(root, m[col]), m[col])
+    paths["images"] = [os.path.join(root, m[0]) for m in members]
+    paths["img_list"] = os.path.join(root, "images.txt")
+    with open(paths["img_list"], "w") as f:
+        f.write("\n".join(paths["images"][:LIST_FRAMES]) + "\n")
+    t_write = time.time() - t0
+    frames = np.stack([im for im, _ in items])
+    labels = np.stack([lab for _, lab in items])
+    return frames, labels, paths, t_scenes, t_write
+
+
+def unit_stages(records, per):
+    """Host seconds by stage of the last unit of ``per`` records."""
+    last = records[-min(per, len(records))]
+    return {k[5:]: last[k] for k in last if k.startswith("time_")}
+
+
+def real_files_phase():
+    """Real image files: a fake Cityscapes tree of PNGs read through the
+    port's CLIs.  The label CLI on the directory (the default
+    configuration: felzenszwalb), on the zip pair with SLIC + the
+    connectivity pass (the Lloyd kernel) and on an image file list
+    without labels (PNG masks); then the train CLI on the image zip and
+    the directory run's masks at the reference recipe, evaluated on the
+    val zips at 1024x2048.  Also the codec, the resize and the yuv420
+    pack, each against its plain version, and their times."""
+    import torch
+
+    from spalign_tpu_torch import native
+    from spalign_tpu_torch.cli import label_gen as label_cli
+    from spalign_tpu_torch.cli import train as train_cli
+    from spalign_tpu_torch.data.png import decode_png
+    from spalign_tpu_torch.kernels import pooling as pk
+    from spalign_tpu_torch.pipeline import wire
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_real_")
+    frames, labels, paths, t_scenes, t_write = write_fake_cityscapes(root)
+
+    # the codec and the resize, per frame, against the frames
+    def decode(i):
+        with open(paths["images"][i], "rb") as f:
+            return decode_png(f.read())
+
+    t0 = time.time()
+    with ThreadPoolExecutor(8) as pool:
+        decoded = list(pool.map(decode, range(REAL_SCENES)))
+    decode_ms = (time.time() - t0) / REAL_SCENES * 1e3
+    t0 = time.time()
+    decode(0)
+    decode_ms_one_thread = (time.time() - t0) * 1e3
+    round_trip = all(np.array_equal(a, b) for a, b in zip(decoded, frames))
+    t0 = time.time()
+    native.resize_cubic_u8(frames[:1], (224, 224))
+    resize_ms_one_thread = (time.time() - t0) * 1e3
+    t0 = time.time()
+    small = native.resize_cubic_u8(frames, (224, 224))
+    resize_ms = (time.time() - t0) / REAL_SCENES * 1e3
+    resize_equal = np.array_equal(
+        small[:2], np.stack([native.resize_cubic_u8_reference(f, (224, 224))
+                             for f in frames[:2]]))
+    golden = sha256(native.resize_cubic_u8(golden_frames(), (224, 224)))
+
+    # the yuv420 pack of a unit (150 at 224^2) and of a full-frame batch
+    unit = small[np.arange(UNIT) % REAL_SCENES]
+    packs = {}
+    for name, batch in (("unit_150x224", unit),
+                        ("batch_30x1024x2048", frames[:30])):
+        t0 = time.time()
+        got = native.pack_yuv420(batch)
+        t_native = time.time() - t0
+        t0 = time.time()
+        want = wire.pack_yuv420(batch)
+        packs[name] = {"seconds": t_native,
+                       "plain_seconds": time.time() - t0,
+                       "equal": bool(np.array_equal(got, want))}
+    del decoded, small, unit
+
+    # the label CLI on the directory, the zip pair and a file list
+    runs = {}
+    dir_out = os.path.join(root, "labels_dir")
+    for name, args in (
+            ("dir_felzenszwalb",
+             ["--cityscapes_dir", root, "--split", "train",
+              "--out_dir", dir_out]),
+            ("zip_slic_connectivity",
+             ["--cityscapes_img_zip", paths["img_zip"],
+              "--cityscapes_label_zip", paths["label_zip"],
+              "--superpixel_method", "slic",
+              "--out_dir", os.path.join(root, "labels_zip")]),
+            ("file_list_no_labels",
+             ["--img_file_list", paths["img_list"],
+              "--out_dir", os.path.join(root, "labels_list")])):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        records = label_cli.main(args)
+        torch.cuda.synchronize()
+        runs[name] = {"images": len(records),
+                      "seconds": time.time() - t0,
+                      "launches": read_counts(),
+                      "last_unit_stage_seconds": unit_stages(records, 30)}
+        if "road_iou" in records[0]:
+            runs[name]["mean_road_iou"] = float(np.mean(
+                [r["road_iou"] for r in records]))
+    masks_equal = []
+    for fn in paths["images"][:LIST_FRAMES]:
+        base = os.path.join(root, "labels_list", os.path.basename(fn))
+        with open(base, "rb") as f:
+            mask = decode_png(f.read(), color=False)
+        masks_equal.append(np.array_equal(mask,
+                                          np.load(base[:-4] + ".npy")))
+
+    # the train CLI on the image zip and the directory run's masks
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    t0 = time.time()
+    trainer, evaluator = train_cli.main([
+        "--train_img_zip", paths["img_zip"], "--train_label_zip", dir_out,
+        "--val_img_zip", paths["val_img_zip"], "--val_label_zip",
+        paths["val_label_zip"], "--optimizer", "Adam", "--batchsize", "8",
+        "--input_shape", "512", "1024", "--eval_shape", "1024", "2048",
+        "--train_limit", str(REAL_TRAIN_STEPS), "--log_interval", "1",
+        "--val_interval", str(REAL_TRAIN_STEPS),
+        "--result_dir", os.path.join(root, "train")])
+    torch.cuda.synchronize()
+    t_train = time.time() - t0
+    train_launches = {"pool2x2": pk.pool2x2.launches,
+                      "scatter2x2": pk.scatter2x2.launches,
+                      "gather2x2": pk.gather2x2.launches}
+    with open(os.path.join(root, "train", "log")) as f:
+        log = json.load(f)
+    steps = [r for r in log if "main/loss" in r]
+    val = [r for r in log if "val/main/loss" in r]
+    # ms per step over the steps after the first two (the first step of
+    # a new model tunes cuDNN), from the trainer's own clock
+    ms_per_step = ((steps[-1]["elapsed_time"] - steps[1]["elapsed_time"])
+                   / (len(steps) - 2) * 1e3)
+    out = {"phase": "real_files", "scenes": REAL_SCENES,
+           "full_hw": list(FULL_HW), "scene_seconds": t_scenes,
+           "write_seconds": t_write,
+           "zip_bytes": {k: os.path.getsize(v) for k, v in paths.items()
+                         if k.endswith("_zip")},
+           "decode_ms_per_frame_8_threads": decode_ms,
+           "decode_ms_per_frame_one_thread": decode_ms_one_thread,
+           "decode_round_trip_equal": round_trip,
+           "resize_ms_per_frame_8_threads": resize_ms,
+           "resize_ms_per_frame_one_thread": resize_ms_one_thread,
+           "resize_equals_plain": bool(resize_equal),
+           "golden_resize_sha256": golden,
+           "yuv420_pack": packs, "label_cli": runs,
+           "no_label_png_masks": len(masks_equal),
+           "no_label_png_masks_equal": all(masks_equal),
+           "train_steps": trainer.step, "train_seconds": t_train,
+           "train_ms_per_step": ms_per_step,
+           "train_losses": [r["main/loss"] for r in steps],
+           "train_launches": train_launches, "val": val[-1] if val else None}
+    emit(out)
+    check(round_trip, "decode(encode(frame)) == frame")
+    check(resize_equal, "resize equals its plain version")
+    check(golden == GOLDEN_RESIZE_SHA256, "golden resize hash")
+    check(all(v["equal"] for v in packs.values()),
+          "C++ yuv420 pack equals the numpy pack")
+    check(runs["dir_felzenszwalb"]["images"] == REAL_SCENES
+          and runs["zip_slic_connectivity"]["images"] == REAL_SCENES
+          and runs["file_list_no_labels"]["images"] == LIST_FRAMES,
+          "the label CLI labels every frame of each source")
+    check(runs["zip_slic_connectivity"]["launches"]["slic_lloyd"] > 0,
+          "the zip run launched the Lloyd kernel")
+    check(all(masks_equal) and len(masks_equal) == LIST_FRAMES,
+          "PNG masks equal the .npy masks without labels")
+    check(trainer.step == REAL_TRAIN_STEPS, "the train CLI ran its steps")
+    check(all(np.isfinite(r["main/loss"]) for r in steps), "finite losses")
+    check(evaluator is not None and val
+          and all(np.isfinite(v) for v in val[-1].values()),
+          "finite val metrics at 1024x2048")
+    check(all(v > 0 for v in train_launches.values()),
+          f"the train CLI launched the pooling kernels: {train_launches}")
+    return out
+
 def main() -> int:
     import torch
 
@@ -1269,13 +1604,12 @@ def main() -> int:
         return 2
     from spalign_tpu_torch import native
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
-    from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
     from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
     from spalign_tpu_torch.kernels.slic import slic_inputs
     from spalign_tpu_torch.models.drn import (DRN_FACTORIES,
                                               preprocess_imagenet)
     from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
-    from spalign_tpu_torch.pipeline.wire import decode_yuv420, pack_yuv420
+    from spalign_tpu_torch.pipeline.wire import decode_yuv420
 
     t_start = time.time()
     dev = torch.device("cuda")
@@ -1309,11 +1643,10 @@ def main() -> int:
     sp = cfg.superpixel
     t0 = time.time()
     frames512, labels = make_scenes()
-    frames = np.stack([resize_bicubic_u8(f, cfg.resize_shape)
-                       for f in frames512])
+    frames = native.resize_cubic_u8(frames512, cfg.resize_shape)
     t_scenes = time.time() - t0
     unit = frames[np.arange(UNIT) % len(frames)]
-    wire = torch.from_numpy(pack_yuv420(unit)).to(dev)
+    wire = torch.from_numpy(native.pack_yuv420(unit)).to(dev)
     images = decode_yuv420(wire, cfg.resize_shape)
     lab, c0, shape = slic_inputs(images, sp.n_slic_segments,
                                  sp.slic_compactness)
@@ -1421,12 +1754,19 @@ def main() -> int:
     pool_summary = pooling_phase()
     train_launches = train_phase(cfg, frames, frames512, labels,
                                  pool_summary)
+    torch.cuda.empty_cache()
+
+    # --- real image files through the label and train CLIs
+    real = real_files_phase()
 
     # launches over every path that runs a kernel, each path's counts set
     # to 0 just before it and read just after
     lloyd_paths = {"main_path": launches,
                    "host_superpixels_path.slic_connectivity":
-                   host_sp["slic_connectivity"]["launches"]["slic_lloyd"]}
+                   host_sp["slic_connectivity"]["launches"]["slic_lloyd"],
+                   "real_files.zip_slic_connectivity":
+                   real["label_cli"]["zip_slic_connectivity"]["launches"][
+                       "slic_lloyd"]}
     assign_paths = {
         "overlaps_path": overlaps["launches"],
         "overlaps_felzenszwalb_path.slic_connectivity":
@@ -1470,12 +1810,15 @@ def main() -> int:
         "sums_bound_ms": assign["sums_bound_ms"],
         "bincount_ms": assign["update_ms"]["bincount_float64"]}]
     # pooling: sums over the train step's four float32 levels (one
-    # launch of the kernel at each), launches over the timed steps
+    # launch of the kernel at each), launches over the timed steps of
+    # train_path and the train CLI's run (its steps and its evaluation)
     for name, v in pool_summary.items():
+        by_path = {"train_path": train_launches[name],
+                   "real_files.train_cli": real["train_launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": POOL_REPLACES[name],
-            "launches": train_launches[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": v["max_abs_err"], "ms": v["kernel_ms"],
             "kernel_ms": v["kernel_ms"], "plain_ms": v["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],

@@ -1,9 +1,9 @@
 """Shared CLI plumbing: dataset construction and weight loading.
 
-Counterpart of ``spalign_tpu/cli/common.py`` with the same flags.  Only
-the synthetic dataset source is ported: the Cityscapes zip, directory
-and file-list sources need a PNG reader, which the port does not have
-without cv2 yet.
+Counterpart of ``spalign_tpu/cli/common.py`` with the same flags and
+the same dataset sources: synthetic scenes, the Cityscapes image and
+label zips, file lists and the Cityscapes directory, read with the
+port's PNG reader.
 """
 
 from __future__ import annotations
@@ -28,20 +28,27 @@ def add_dataset_args(p: argparse.ArgumentParser):
     p.add_argument("--synthetic_seed", type=int, default=0)
 
 
-def build_label_dataset(args):
+def build_label_dataset(args, resize_shape):
     """Dataset for label generation: raw uint8 images + full-res labels
-    (the synthetic source resizes per batch)."""
+    (the precedence of batch_spalign_kmeans.create_dataset :486-521)."""
+    from spalign_tpu_torch.data.cityscapes import (
+        CityscapesRoadDataset, FileListDataset, ZippedCityscapesRoadDataset)
     from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
 
     if args.synthetic is not None:
         return SyntheticRoadScenes(n=args.synthetic,
                                    full_shape=tuple(args.synthetic_shape),
                                    seed=args.synthetic_seed)
-    if (args.cityscapes_img_zip or args.img_file_list
-            or args.cityscapes_dir):
-        raise NotImplementedError(
-            "the Cityscapes zip, directory and file-list sources are not "
-            "ported: they need a PNG reader without cv2; use --synthetic N")
+    if args.cityscapes_img_zip and args.cityscapes_label_zip:
+        return ZippedCityscapesRoadDataset(
+            args.cityscapes_img_zip, args.cityscapes_label_zip,
+            resize_shape, standardize=False)
+    if args.img_file_list:
+        return FileListDataset(args.img_file_list, args.label_file_list,
+                               resize_shape, standardize=False)
+    if args.cityscapes_dir:
+        return CityscapesRoadDataset(args.cityscapes_dir, resize_shape,
+                                     split=args.split, standardize=False)
     raise SystemExit("no dataset source given (see --help); for a "
                      "data-free demo pass --synthetic N")
 

@@ -6,7 +6,9 @@ PyTorch versions of the kernels).  Every superpixel engine and both
 k-means inits run.  Not ported: ``--profile_dir`` and diagnostic panels
 (``--save_images``, which raises ``NotImplementedError``).
 
-Example (data-free):
+Examples:
+  python -m spalign_tpu_torch.cli.label_gen --cityscapes_dir data/cityscapes \
+      --split train --out_dir results/labels
   python -m spalign_tpu_torch.cli.label_gen --mode overlaps --synthetic 4 \
       --superpixel_method slic --slic_no_connectivity --out_dir results/demo
 """
@@ -121,7 +123,7 @@ def config_from_args(args) -> LabelGenConfig:
 def main(argv=None):
     args = get_args(argv)
     cfg = config_from_args(args)
-    dataset = build_label_dataset(args)
+    dataset = build_label_dataset(args, cfg.resize_shape)
     state_dict = load_drn_weights(args)
 
     from spalign_tpu_torch.pipeline.direct import make_label_generator

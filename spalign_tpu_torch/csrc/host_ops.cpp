@@ -16,8 +16,13 @@
 //
 // Exposed via ctypes (see spalign_tpu_torch/native.py); no Python
 // objects cross the boundary.  The same source and the same g++ flags as
-// the JAX package's library give the same label maps.  The last three
-// entry points (relabel's) compile here but are not bound yet.
+// the JAX package's library give the same label maps.  Relabel's three
+// entry points compile here but are not bound yet.
+//
+// The image I/O of the port follows them: the yuv420 wire pack, PNG
+// row un-filtering and cv2's cubic resize of uint8 images.  Each works
+// on a slice of a batch; native.py splits a batch over threads (ctypes
+// releases the GIL).
 
 #include <algorithm>
 #include <chrono>
@@ -678,5 +683,199 @@ int32_t spalign_standardize_invert(const float* in, int64_t npix,
   }
   return 0;
 }
+
+// ---------------------------------------------------------------------
+// Image I/O of the label and training paths.
+// ---------------------------------------------------------------------
+
+// yuv420 wire pack of n (h, w, 3) uint8 RGB images (pipeline/wire.py's
+// pack_yuv420, bit for bit): cv2's fixed-point RGB -> YCrCb (14
+// fractional bits, chroma clipped to [0, 255]), then each chroma plane
+// downscaled 2x by the rounded mean of its 2x2 blocks (INTER_AREA).
+// out: n rows of [Y (h*w) | Cr (h/2*w/2) | Cb (h/2*w/2)].  Returns 0,
+// or -1 on invalid arguments (h or w odd).
+int32_t spalign_pack_yuv420(const uint8_t* rgb, int32_t n, int32_t h,
+                            int32_t w, uint8_t* out) {
+  if (!rgb || !out || n < 0 || h <= 0 || w <= 0 || (h & 1) || (w & 1))
+    return -1;
+  const int32_t kShift = 14, kHalf = 1 << (kShift - 1);
+  const int32_t kBias = (128 << kShift) + kHalf;
+  const size_t hw = (size_t)h * (size_t)w, q = hw / 4;
+  for (int32_t b = 0; b < n; ++b) {
+    const uint8_t* img = rgb + (size_t)b * hw * 3;
+    uint8_t* yp = out + (size_t)b * (hw + 2 * q);
+    uint8_t* crp = yp + hw;
+    uint8_t* cbp = crp + q;
+    for (int32_t by = 0; by < h / 2; ++by) {
+      for (int32_t bx = 0; bx < w / 2; ++bx) {
+        int32_t cr_sum = 0, cb_sum = 0;
+        for (int32_t dy = 0; dy < 2; ++dy) {
+          for (int32_t dx = 0; dx < 2; ++dx) {
+            const size_t i = (size_t)(2 * by + dy) * (size_t)w + 2 * bx + dx;
+            const int32_t r = img[3 * i], g = img[3 * i + 1],
+                          bl = img[3 * i + 2];
+            const int32_t y = (4899 * r + 9617 * g + 1868 * bl + kHalf)
+                              >> kShift;
+            const int32_t cr = ((r - y) * 11682 + kBias) >> kShift;
+            const int32_t cb = ((bl - y) * 9241 + kBias) >> kShift;
+            yp[i] = (uint8_t)y;
+            cr_sum += cr < 0 ? 0 : (cr > 255 ? 255 : cr);
+            cb_sum += cb < 0 ? 0 : (cb > 255 ? 255 : cb);
+          }
+        }
+        const size_t j = (size_t)by * (size_t)(w / 2) + bx;
+        crp[j] = (uint8_t)((cr_sum + 2) >> 2);
+        cbp[j] = (uint8_t)((cb_sum + 2) >> 2);
+      }
+    }
+  }
+  return 0;
+}
+
+// PNG row un-filtering (PNG spec section 9): h scanlines of 1 + row_bytes
+// bytes (filter type, then the filtered bytes) -> h * row_bytes bytes.
+// bpp: bytes per complete pixel (at least 1).  Sub, Average and Paeth
+// read the byte bpp before in the same, already un-filtered row.
+// Returns 0, -1 on invalid arguments, or -2 - y when row y carries an
+// unknown filter type.
+int32_t spalign_png_unfilter(const uint8_t* in, int32_t h, int64_t row_bytes,
+                             int32_t bpp, uint8_t* out) {
+  if (!in || !out || h < 0 || row_bytes <= 0 || bpp <= 0) return -1;
+  const size_t rb = (size_t)row_bytes, pb = (size_t)bpp;
+  for (int32_t y = 0; y < h; ++y) {
+    const uint8_t* src = in + (size_t)y * (rb + 1);
+    const uint8_t ft = src[0];
+    ++src;
+    uint8_t* cur = out + (size_t)y * rb;
+    const uint8_t* prev = y > 0 ? cur - rb : nullptr;
+    switch (ft) {
+      case 0:
+        std::memcpy(cur, src, rb);
+        break;
+      case 1:
+        for (size_t x = 0; x < rb; ++x)
+          cur[x] = (uint8_t)(src[x] + (x >= pb ? cur[x - pb] : 0));
+        break;
+      case 2:
+        for (size_t x = 0; x < rb; ++x)
+          cur[x] = (uint8_t)(src[x] + (prev ? prev[x] : 0));
+        break;
+      case 3:
+        for (size_t x = 0; x < rb; ++x) {
+          const int32_t a = x >= pb ? cur[x - pb] : 0;
+          const int32_t b = prev ? prev[x] : 0;
+          cur[x] = (uint8_t)(src[x] + ((a + b) >> 1));
+        }
+        break;
+      case 4:
+        for (size_t x = 0; x < rb; ++x) {
+          const int32_t a = x >= pb ? cur[x - pb] : 0;
+          const int32_t b = prev ? prev[x] : 0;
+          const int32_t c = (prev && x >= pb) ? prev[x - pb] : 0;
+          const int32_t p = a + b - c;
+          const int32_t pa = std::abs(p - a), pbd = std::abs(p - b),
+                        pc = std::abs(p - c);
+          const int32_t pred = (pa <= pbd && pa <= pc) ? a
+                               : (pbd <= pc ? b : c);
+          cur[x] = (uint8_t)(src[x] + pred);
+        }
+        break;
+      default:
+        return -2 - y;
+    }
+  }
+  return 0;
+}
+
+// cv2.resize(..., INTER_CUBIC) of uint8 images with cv2's default (IPP)
+// arithmetic as closely as a separable float32 form gets: source
+// positions (d + 0.5) * scale - 0.5 and the cubic weights (A = -0.75,
+// the fourth 1 minus the other three) in float64, rounded to float32;
+// the vertical pass, then the horizontal one, each a float32 sum of
+// four products in tap order; borders replicated; rounded half to even
+// and saturated.  Contraction to FMA is off for this code (-march=native
+// would otherwise fuse the products and sums and move roundings).
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
+namespace {
+
+void cubic_taps(int32_t n_out, int32_t n_in, std::vector<int32_t>& idx,
+                std::vector<float>& wts) {
+  const double scale = (double)n_in / (double)n_out, A = -0.75;
+  idx.resize((size_t)n_out * 4);
+  wts.resize((size_t)n_out * 4);
+  for (int32_t d = 0; d < n_out; ++d) {
+    const double f = ((double)d + 0.5) * scale - 0.5;
+    const double s = std::floor(f), x = f - s;
+    const double c0 = ((A * (x + 1) - 5 * A) * (x + 1) + 8 * A) * (x + 1)
+                      - 4 * A;
+    const double c1 = ((A + 2) * x - (A + 3)) * x * x + 1;
+    const double c2 = ((A + 2) * (1 - x) - (A + 3)) * (1 - x) * (1 - x) + 1;
+    const double c3 = 1 - c0 - c1 - c2;
+    const double c[4] = {c0, c1, c2, c3};
+    for (int32_t k = 0; k < 4; ++k) {
+      int64_t i = (int64_t)s + k - 1;
+      i = i < 0 ? 0 : (i >= n_in ? n_in - 1 : i);
+      idx[(size_t)d * 4 + k] = (int32_t)i;
+      wts[(size_t)d * 4 + k] = (float)c[k];
+    }
+  }
+}
+
+}  // namespace
+
+// n images (H, W, C) uint8 -> (h, w, C) uint8.  Returns 0, or -1 on
+// invalid arguments.
+int32_t spalign_resize_cubic_u8(const uint8_t* src, int32_t n, int32_t H,
+                                int32_t W, int32_t C, int32_t h, int32_t w,
+                                uint8_t* dst) {
+  if (!src || !dst || n < 0 || H <= 0 || W <= 0 || C <= 0 || h <= 0 ||
+      w <= 0)
+    return -1;
+  std::vector<int32_t> iy, ix;
+  std::vector<float> cy, cx;
+  cubic_taps(h, H, iy, cy);
+  cubic_taps(w, W, ix, cx);
+  const size_t row_in = (size_t)W * C, row_out = (size_t)w * C;
+  std::vector<float> tmp((size_t)h * row_in);
+  for (int32_t b = 0; b < n; ++b) {
+    const uint8_t* img = src + (size_t)b * H * row_in;
+    uint8_t* out = dst + (size_t)b * h * row_out;
+    for (int32_t y = 0; y < h; ++y) {
+      const uint8_t* r0 = img + (size_t)iy[(size_t)y * 4] * row_in;
+      const uint8_t* r1 = img + (size_t)iy[(size_t)y * 4 + 1] * row_in;
+      const uint8_t* r2 = img + (size_t)iy[(size_t)y * 4 + 2] * row_in;
+      const uint8_t* r3 = img + (size_t)iy[(size_t)y * 4 + 3] * row_in;
+      const float* c = &cy[(size_t)y * 4];
+      float* t = &tmp[(size_t)y * row_in];
+      for (size_t x = 0; x < row_in; ++x) {
+        float acc = c[0] * (float)r0[x];
+        acc = acc + c[1] * (float)r1[x];
+        acc = acc + c[2] * (float)r2[x];
+        acc = acc + c[3] * (float)r3[x];
+        t[x] = acc;
+      }
+    }
+    for (int32_t y = 0; y < h; ++y) {
+      const float* t = &tmp[(size_t)y * row_in];
+      uint8_t* o = out + (size_t)y * row_out;
+      for (int32_t x = 0; x < w; ++x) {
+        const int32_t* i = &ix[(size_t)x * 4];
+        const float* c = &cx[(size_t)x * 4];
+        for (int32_t ch = 0; ch < C; ++ch) {
+          float acc = c[0] * t[(size_t)i[0] * C + ch];
+          acc = acc + c[1] * t[(size_t)i[1] * C + ch];
+          acc = acc + c[2] * t[(size_t)i[2] * C + ch];
+          acc = acc + c[3] * t[(size_t)i[3] * C + ch];
+          const float v = nearbyintf(acc);
+          o[(size_t)x * C + ch] =
+              (uint8_t)(v < 0.f ? 0.f : (v > 255.f ? 255.f : v));
+        }
+      }
+    }
+  }
+  return 0;
+}
+#pragma GCC pop_options
 
 }  // extern "C"

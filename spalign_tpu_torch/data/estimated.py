@@ -9,11 +9,13 @@ horizontal-flip augmentation, standardized with the Cityscapes
 statistics.  Labels may live in a directory, inside a zip of .npy
 members, or in one .npz archive.
 
-The port reads no PNG (no cv2 or PIL on the card's machine): its images
-come from a dataset object of the protocol the label generator reads,
+Images come from an image zip or directory (``**/*.png``, or the zip
+members ending in ``.png``), read with the port's PNG reader, or from
+a dataset object of the protocol the label generator reads,
 ``images[i] -> (HWC uint8, labelIds)`` and ``images.image_name(i)``
-(``data/synthetic.py::SyntheticRoadScenes`` is one).  Images resize with
-torch's bicubic filter, labels with the cv2-nearest convention.
+(``data/synthetic.py::SyntheticRoadScenes`` is one).  Images resize
+with torch's bicubic filter in float32 (JAX: cv2's float cubic, under
+the tests' tolerance), labels with the cv2-nearest convention.
 """
 
 from __future__ import annotations
@@ -26,14 +28,12 @@ from io import BytesIO
 
 import numpy as np
 
+from spalign_tpu_torch.data.cityscapes import (CITYSCAPES_MEAN,
+                                               CITYSCAPES_STD, _LazyZip,
+                                               _read_file)
+from spalign_tpu_torch.data.png import decode_png
 from spalign_tpu_torch.data.synthetic import resize_bicubic_f32
 from spalign_tpu_torch.pipeline.label_gen import nn_resize_np
-
-# Cityscapes train-set RGB statistics (spalign_tpu/data/cityscapes.py)
-CITYSCAPES_MEAN = np.array([73.15835921071367, 82.90891754262415,
-                            72.39239876194161], dtype=np.float32)
-CITYSCAPES_STD = np.array([41.61211675686322, 42.21582767516605,
-                           40.48309952494058], dtype=np.float32)
 
 # ImageNet RGB PCA eigenvalues/eigenvectors (Krizhevsky et al. 2012) —
 # the constants behind chainercv.transforms.pca_lighting.
@@ -88,17 +88,45 @@ class _NpyZipStore:
             return np.load(BytesIO(f.read()), allow_pickle=False)
 
 
-class EstimatedCityscapesDataset:
-    """Images (a dataset object) + estimated labels (dir/zip/npz).
+class _PngImages:
+    """The PNG files of an image directory (searched recursively) or zip,
+    as a dataset object: ``[i] -> (RGB uint8, None)``, ``image_name``."""
 
-    A label ``<key>.npy`` pairs with the image whose ``image_name``
-    without directory and extension is ``<key>``.  use_soft_label selects
-    the ``*_scores`` float arrays; otherwise the hard masks.  Items are
+    def __init__(self, img_source: str):
+        if os.path.isdir(img_source):
+            self.names = sorted(glob.glob(
+                os.path.join(img_source, "**", "*.png"), recursive=True))
+            self._read = _read_file
+        else:
+            zf = _LazyZip(img_source)
+            self.names = sorted(f for f in zf.namelist()
+                                if f.endswith(".png"))
+            self._read = zf.read
+
+    def __len__(self):
+        return len(self.names)
+
+    def image_name(self, i):
+        return self.names[i]
+
+    def __getitem__(self, i):
+        return decode_png(self._read(self.names[i])), None
+
+
+class EstimatedCityscapesDataset:
+    """Images (an image zip or directory, or a dataset object) + estimated
+    labels (dir/zip/npz).
+
+    A label ``<key>.npy`` pairs with the image whose file name without
+    directory and extension is ``<key>``.  use_soft_label selects the
+    ``*_scores`` float arrays; otherwise the hard masks.  Items are
     (image (H, W, 3) float32 standardized, label) at ``resize_shape``."""
 
-    def __init__(self, images, label_source: str, resize_shape,
+    def __init__(self, img_source, label_source: str, resize_shape,
                  augment: bool = False, use_soft_label: bool = False,
                  seed: int = 0):
+        images = (_PngImages(img_source) if isinstance(img_source, str)
+                  else img_source)
         self.images = images
         self.labels = _NpyZipStore(label_source)
         suffix = "_scores"
@@ -119,8 +147,8 @@ class EstimatedCityscapesDataset:
                 self.img_ids.append(img_index[base])
                 self.label_keys.append(key)
         if not self.img_ids:
-            raise ValueError(f"no image/label pairs between the images and "
-                             f"{label_source}")
+            raise ValueError(f"no image/label pairs between {img_source} "
+                             f"and {label_source}")
         self.resize_shape = tuple(resize_shape)
         self.augment = augment
         self.use_soft_label = use_soft_label

@@ -8,8 +8,9 @@ buildings / sidewalk with distinct textures.  Scenes are seeded, so tests
 and benchmarks are reproducible.
 
 The port's own copy of ``spalign_tpu/data/synthetic.py``: the scenes
-are the same arrays; only ``resized_batch`` differs, resizing with
-torch's bicubic filter instead of cv2 (which the port does not use).
+are the same arrays; ``resized_batch`` resizes with the host library's
+copy of cv2's cubic filter (``native.resize_cubic_u8``) instead of cv2,
+which the port does not use.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from spalign_tpu_torch import native
 
 
 def _value_noise(rng, h, w, cell, amp):
@@ -180,19 +183,12 @@ class SyntheticRoadScenes:
         return np.clip(img, 0, 255).astype(np.uint8), labels
 
     def resized_batch(self, indices, resize_hw):
-        """(B, h, w, 3) uint8 images + full-res (B, H, W) labelIds.
-
-        Images are resized with torch's bicubic filter (a = -0.75,
-        half-pixel centres, no antialias: cv2.INTER_CUBIC's kernel),
-        rounded and clamped to uint8.  Not bit-equal to cv2."""
-        imgs, labels = [], []
-        for i in indices:
-            img, lab = self[i]
-            if (img.shape[0], img.shape[1]) != tuple(resize_hw):
-                img = resize_bicubic_u8(img, resize_hw)
-            imgs.append(img)
-            labels.append(lab)
-        return np.stack(imgs), np.stack(labels)
+        """(B, h, w, 3) uint8 images + full-res (B, H, W) labelIds; the
+        images resized as cv2.INTER_CUBIC does (``native.resize_cubic_u8``)."""
+        items = [self[i] for i in indices]
+        imgs = np.stack([img for img, _ in items])
+        return (native.resize_cubic_u8(imgs, resize_hw),
+                np.stack([lab for _, lab in items]))
 
 
 def _bicubic(img: np.ndarray, out_hw) -> torch.Tensor:
@@ -200,11 +196,6 @@ def _bicubic(img: np.ndarray, out_hw) -> torch.Tensor:
     y = F.interpolate(x[None].to(torch.float32), size=tuple(out_hw),
                       mode="bicubic", align_corners=False)
     return y[0].permute(1, 2, 0)
-
-
-def resize_bicubic_u8(img: np.ndarray, out_hw) -> np.ndarray:
-    """(H, W, 3) uint8 -> (h, w, 3) uint8 bicubic resize on the CPU."""
-    return _bicubic(img, out_hw).round().clamp(0, 255).to(torch.uint8).numpy()
 
 
 def resize_bicubic_f32(img: np.ndarray, out_hw) -> np.ndarray:

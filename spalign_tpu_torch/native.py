@@ -1,15 +1,19 @@
-"""The host superpixel engines and the scorer: ctypes bindings of
-``csrc/host_ops.cpp``.
+"""The host superpixel engines, the scorer and the image I/O: ctypes
+bindings of ``csrc/host_ops.cpp``.
 
 Counterpart of ``spalign_tpu/native/__init__.py`` with its call
-conventions.  The library is built by g++ at first use
-(``kernels/_build.py`` ``HostLibrary``); a failed build raises, and
-nothing falls back to the plain numpy versions.  The ctypes calls
-release the GIL, so threads run them in parallel.
+conventions, plus what the JAX package gets from cv2 on the host: the
+yuv420 wire pack, PNG row un-filtering and the uint8 cubic resize.  The
+library is built by g++ at first use (``kernels/_build.py``
+``HostLibrary``); a failed build raises, and nothing falls back to the
+plain numpy versions.  The ctypes calls release the GIL, so threads run
+them in parallel: the batch functions split their images over up to
+``HOST_THREADS`` threads.
 
-``felzenszwalb_reference`` and ``enforce_connectivity_reference`` are the
-plain numpy versions (copies of the JAX package's fallbacks), for the
-tests only: slow Python loops.  ``felzenszwalb_reference`` equals the
+``felzenszwalb_reference``, ``enforce_connectivity_reference``,
+``png_unfilter_reference`` and ``resize_cubic_u8_reference`` are the
+plain numpy versions, for the tests only (``pipeline/wire.py``'s
+``pack_yuv420`` is the pack's).  ``felzenszwalb_reference`` equals the
 library's partition without the blur (sigma = 0); with it the two blurs
 round differently, and the segment counts agree within one.
 """
@@ -17,6 +21,8 @@ round differently, and the segment counts agree within one.
 from __future__ import annotations
 
 import ctypes
+import os
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -33,7 +39,26 @@ LIBRARY = HostLibrary("host_ops", {
                                     ctypes.c_float, _I32, _I32P]),
     "spalign_enforce_connectivity": (_I32, [_I32P, _I32, _I32, _I32, _I32P]),
     "spalign_confusion": (_I32, [_U8P, _I32, _I32, _U8P, _I32, _I32, _I64P]),
+    "spalign_pack_yuv420": (_I32, [_U8P, _I32, _I32, _I32, _U8P]),
+    "spalign_png_unfilter": (_I32, [_U8P, _I32, ctypes.c_int64, _I32, _U8P]),
+    "spalign_resize_cubic_u8": (_I32, [_U8P, _I32, _I32, _I32, _I32, _I32,
+                                       _I32, _U8P]),
 })
+HOST_THREADS = 8
+
+
+def _split_batch(fn, n: int):
+    """Run ``fn(begin, end)`` over [0, n) in contiguous slices, one per
+    thread (at most HOST_THREADS and the cores)."""
+    n_threads = max(1, min(HOST_THREADS, os.cpu_count() or 1, n))
+    bounds = np.linspace(0, n, n_threads + 1).astype(int)
+    if n_threads == 1:
+        fn(0, n)
+        return
+    with ThreadPoolExecutor(n_threads) as ex:
+        for f in [ex.submit(fn, int(a), int(b))
+                  for a, b in zip(bounds[:-1], bounds[1:])]:
+            f.result()
 
 
 def felzenszwalb(img_hwc: np.ndarray, scale: float = 300.0,
@@ -85,6 +110,73 @@ def confusion_vs_labelids(pred_small: np.ndarray,
     if rc < 0:
         raise ValueError("confusion_vs_labelids: invalid arguments")
     return out.reshape(2, 2)
+
+
+def pack_yuv420(images_uint8: np.ndarray) -> np.ndarray:
+    """(B, H, W, 3) uint8 RGB -> (B, 1.5*H*W) uint8 yuv420 planes, bit-equal
+    to ``pipeline/wire.pack_yuv420`` (its plain version)."""
+    img = np.ascontiguousarray(images_uint8, dtype=np.uint8)
+    b, h, w, c = img.shape
+    if c != 3 or h % 2 or w % 2:
+        raise ValueError(f"yuv420 needs (B, H, W, 3) with H, W even, got "
+                         f"{img.shape}")
+    per = h * w + (h // 2) * (w // 2) * 2
+    out = np.empty((b, per), np.uint8)
+    lib = LIBRARY.get()
+
+    def run(lo, hi):
+        if lib.spalign_pack_yuv420(img[lo:hi].ctypes.data_as(_U8P), hi - lo,
+                                   h, w, out[lo:hi].ctypes.data_as(_U8P)):
+            raise ValueError("pack_yuv420: invalid arguments")
+
+    _split_batch(run, b)
+    return out
+
+
+def png_unfilter(raw: bytes, h: int, row_bytes: int, bpp: int) -> np.ndarray:
+    """Inflated PNG image data (h scanlines of a filter-type byte and
+    ``row_bytes`` bytes) -> (h, row_bytes) uint8 un-filtered bytes."""
+    data = np.frombuffer(raw, np.uint8)
+    if data.size != h * (row_bytes + 1):
+        raise ValueError(f"PNG image data holds {data.size} bytes, "
+                         f"expected {h * (row_bytes + 1)}")
+    out = np.empty((h, row_bytes), np.uint8)
+    rc = LIBRARY.get().spalign_png_unfilter(
+        data.ctypes.data_as(_U8P), h, row_bytes, bpp,
+        out.ctypes.data_as(_U8P))
+    if rc <= -2:
+        raise ValueError(f"PNG row {-2 - rc} has an unknown filter type")
+    if rc < 0:
+        raise ValueError("png_unfilter: invalid arguments")
+    return out
+
+
+def resize_cubic_u8(images: np.ndarray, out_hw) -> np.ndarray:
+    """cv2.resize(img, (w, h), interpolation=INTER_CUBIC) of uint8 images
+    with cv2's default arithmetic (``csrc/host_ops.cpp``
+    ``spalign_resize_cubic_u8``).  ``images``: (H, W, C) or a batch
+    (B, H, W, C); the result has the same layout at ``out_hw``.  Images
+    already at ``out_hw`` are returned as they are."""
+    img = np.asarray(images)
+    if img.dtype != np.uint8 or img.ndim not in (3, 4):
+        raise ValueError(f"resize_cubic_u8 takes uint8 (H, W, C) or "
+                         f"(B, H, W, C), got {img.dtype} {img.shape}")
+    h, w = (int(v) for v in out_hw)
+    if img.shape[-3:-1] == (h, w):
+        return images
+    batch = np.ascontiguousarray(img if img.ndim == 4 else img[None])
+    b, in_h, in_w, c = batch.shape
+    out = np.empty((b, h, w, c), np.uint8)
+    lib = LIBRARY.get()
+
+    def run(lo, hi):
+        if lib.spalign_resize_cubic_u8(batch[lo:hi].ctypes.data_as(_U8P),
+                                       hi - lo, in_h, in_w, c, h, w,
+                                       out[lo:hi].ctypes.data_as(_U8P)):
+            raise ValueError("resize_cubic_u8: invalid arguments")
+
+    _split_batch(run, b)
+    return out if img.ndim == 4 else out[0]
 
 
 # ------------------------- plain numpy versions ----------------------------
@@ -211,3 +303,67 @@ def enforce_connectivity_reference(labels: np.ndarray,
                     uf.merge(rp, best)
                     changed = True
     return _first_occurrence_ids([uf.find(i) for i in range(n)]).reshape(h, w)
+
+
+def png_unfilter_reference(raw: bytes, h: int, row_bytes: int,
+                           bpp: int) -> np.ndarray:
+    """Plain numpy version of :func:`png_unfilter`."""
+    data = np.frombuffer(raw, np.uint8).reshape(h, row_bytes + 1)
+    out = np.zeros((h, row_bytes), np.int32)
+    prev = np.zeros(row_bytes, np.int32)
+    for y in range(h):
+        ft, src = int(data[y, 0]), data[y, 1:].astype(np.int32)
+        cur = out[y]
+        if ft == 0:
+            cur[:] = src
+        elif ft == 2:
+            cur[:] = (src + prev) & 255
+        elif ft in (1, 3, 4):
+            for x0 in range(0, row_bytes, bpp):
+                sl = slice(x0, x0 + bpp)
+                a = cur[x0 - bpp:x0] if x0 >= bpp else 0
+                b = prev[sl]
+                if ft == 1:
+                    pred = a
+                elif ft == 3:
+                    pred = (a + b) >> 1
+                else:
+                    c = prev[x0 - bpp:x0] if x0 >= bpp else 0
+                    p = a + b - c
+                    pa, pb, pc = np.abs(p - a), np.abs(p - b), np.abs(p - c)
+                    pred = np.where((pa <= pb) & (pa <= pc), a,
+                                    np.where(pb <= pc, b, c))
+                cur[sl] = (src[sl] + pred) & 255
+        else:
+            raise ValueError(f"PNG row {y} has an unknown filter type")
+        prev = cur
+    return out.astype(np.uint8)
+
+
+def _cubic_taps_reference(n_out: int, n_in: int):
+    f = (np.arange(n_out, dtype=np.float64) + 0.5) * (n_in / n_out) - 0.5
+    s = np.floor(f)
+    x = f - s
+    a = -0.75
+    c0 = ((a * (x + 1) - 5 * a) * (x + 1) + 8 * a) * (x + 1) - 4 * a
+    c1 = ((a + 2) * x - (a + 3)) * x * x + 1
+    c2 = ((a + 2) * (1 - x) - (a + 3)) * (1 - x) * (1 - x) + 1
+    c3 = 1 - c0 - c1 - c2
+    idx = np.clip(s.astype(np.int64)[:, None] + np.arange(-1, 3), 0,
+                  n_in - 1)
+    return idx, np.stack([c0, c1, c2, c3], 1).astype(np.float32)
+
+
+def resize_cubic_u8_reference(img: np.ndarray, out_hw) -> np.ndarray:
+    """Plain numpy version of :func:`resize_cubic_u8` for one (H, W, C)
+    image."""
+    x = np.asarray(img).astype(np.float32)
+    iy, cy = _cubic_taps_reference(out_hw[0], x.shape[0])
+    ix, cx = _cubic_taps_reference(out_hw[1], x.shape[1])
+    t = cy[:, 0, None, None] * x[iy[:, 0]]
+    for k in range(1, 4):
+        t = t + cy[:, k, None, None] * x[iy[:, k]]
+    o = cx[None, :, 0, None] * t[:, ix[:, 0]]
+    for k in range(1, 4):
+        o = o + cx[None, :, k, None] * t[:, ix[:, k]]
+    return np.clip(np.rint(o), 0, 255).astype(np.uint8)

@@ -6,6 +6,12 @@ stable sort per image, bilinear interpolation of every anchor as one
 gather, and a masked mean per superpixel.  The reference's "4 nearest
 cells + bbox" is the enclosing 2x2 of cell centres, which the closed
 form below computes with the reference's weight arithmetic.
+
+The gather and the mean run over chunks of images whose (S, A, C)
+temporaries fit ``ALIGN_CHUNK_BYTES``: at S = 1024 segments, A = 10
+anchors and C = 512 channels one image's corner tensor alone is 21 MB,
+and a unit of 150 images at once would hold several 3.1 GB tensors.
+Each image's arithmetic is the same whatever the chunk.
 """
 
 from __future__ import annotations
@@ -17,6 +23,18 @@ import torch
 from spalign_tpu_torch.ops.segments import (center_of_mass,
                                             sample_segment_anchors,
                                             segment_sizes)
+
+# device bytes the (chunk, S, A, C) temporaries of the align may hold
+ALIGN_CHUNK_BYTES = 1 << 30
+# float32 (S, A, C) tensors live at once per image: four corners, the
+# weighted terms and their sum
+_LIVE_TENSORS = 8
+
+
+def align_chunk(s: int, a: int, c: int) -> int:
+    """Images per chunk of the align's gather: as many as fit
+    ALIGN_CHUNK_BYTES, at least one."""
+    return max(1, ALIGN_CHUNK_BYTES // (_LIVE_TENSORS * 4 * s * a * c))
 
 
 def bilinear_sample(feature_map: torch.Tensor,
@@ -88,11 +106,19 @@ def superpixel_align(feature_maps: torch.Tensor, superpixels: torch.Tensor,
     pts = anchor_yx * feature_ratio + 0.5
     pts_y = pts[..., 0].clamp(0.0, h_f - 1 + 0.5)
     pts_x = pts[..., 1].clamp(0.0, w_f - 1 + 0.5)
-    feats = bilinear_sample(feature_maps, torch.stack([pts_y, pts_x], -1))
-
-    m = anchor_valid[..., None].to(feats.dtype)
+    pts = torch.stack([pts_y, pts_x], -1)
     n_valid = anchor_valid.sum(-1).clamp(min=1)  # (B, S)
-    mean_feat = (feats * m).sum(-2) / n_valid[..., None].to(feats.dtype)
+    b = feature_maps.shape[0]
+    chunk = align_chunk(num_segments, n_anchors, feature_maps.shape[-1])
+    means = []
+    for lo in range(0, b, chunk):
+        sl = slice(lo, lo + chunk)
+        feats = bilinear_sample(feature_maps[sl], pts[sl])
+        m = anchor_valid[sl, ..., None].to(feats.dtype)
+        means.append((feats * m).sum(-2)
+                     / n_valid[sl, ..., None].to(feats.dtype))
+        del feats, m  # freed before the next chunk's gather
+    mean_feat = torch.cat(means)
     if append_pos:
         com = center_of_mass(superpixels, num_segments)
         if pos_scale != 1.0:

@@ -32,6 +32,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from spalign_tpu_torch import native
 from spalign_tpu_torch.config import LabelGenConfig
 from spalign_tpu_torch.kernels.slic import slic_grid_size
 from spalign_tpu_torch.ops.kmeans import weighted_kmeans
@@ -43,7 +44,6 @@ from spalign_tpu_torch.pipeline.label_gen import (KMEANS_CHECK_EVERY,
                                                   pack_mask_bits)
 from spalign_tpu_torch.pipeline.superpixels import (batched_slic_device,
                                                     batched_slic_device_yuv)
-from spalign_tpu_torch.pipeline.wire import pack_yuv420
 from spalign_tpu_torch.utils.timers import StageTimer
 
 
@@ -241,7 +241,8 @@ class OverlapsLabelGenerator(DirectLabelGenerator):
                 run = batched_slic_device_yuv(
                     sp.n_slic_segments, sp.slic_compactness, sp.slic_iters,
                     (h, w))
-                host, dev, ready = self._upload(pack_yuv420(full_images))
+                host, dev, ready = self._upload(
+                    native.pack_yuv420(full_images))
             else:
                 run = batched_slic_device(sp.n_slic_segments,
                                           sp.slic_compactness,

@@ -4,7 +4,8 @@ Counterpart of ``spalign_tpu/pipeline/label_gen.py``.
 ``LabelGeneratorBase`` is the host loop the three modes share (a
 producer thread that loads and uploads units ahead, ``in_flight`` units
 dispatched before the oldest is finished, scoring against full-resolution
-labelIds with the native scorer, ``.npy`` mask saving, resume); the
+labelIds with the native scorer, ``.npy`` mask saving (plus a PNG of
+each mask without ground truth), resume); the
 direct and overlaps modes live in ``pipeline/direct.py``.
 ``SpalignLabelGenerator`` runs, for each unit of G clustering groups of
 ``batchsize`` images, on one device:
@@ -49,6 +50,7 @@ import torch
 
 from spalign_tpu_torch import native
 from spalign_tpu_torch.config import LabelGenConfig, flatten
+from spalign_tpu_torch.data.png import write_png
 from spalign_tpu_torch.eval.results import ResultWriter
 from spalign_tpu_torch.kernels.slic import slic, slic_grid_size
 from spalign_tpu_torch.models.drn import DRN_FACTORIES, preprocess_imagenet
@@ -61,7 +63,7 @@ from spalign_tpu_torch.ops.parity import (reference_seed_assignment,
 from spalign_tpu_torch.ops.prior import superpixel_prior
 from spalign_tpu_torch.ops.segments import anchor_key_bits
 from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
-from spalign_tpu_torch.pipeline.wire import decode_yuv420, pack_yuv420
+from spalign_tpu_torch.pipeline.wire import decode_yuv420
 from spalign_tpu_torch.utils.device import resolve_device
 from spalign_tpu_torch.utils.timers import StageTimer
 
@@ -242,15 +244,12 @@ def _load_batch(dataset, indices, resize_hw):
     """(B, h, w, 3) uint8 resized images + full-res labelIds (or None)."""
     if hasattr(dataset, "resized_batch"):
         return dataset.resized_batch(list(indices), resize_hw)
-    from spalign_tpu_torch.data.synthetic import resize_bicubic_u8
-
     imgs, labels = [], []
     for idx in indices:
         item = dataset[idx]
         img, lab = item if isinstance(item, tuple) else (item, None)
-        if img.shape[:2] != tuple(resize_hw):
-            img = resize_bicubic_u8(img, resize_hw)
-        imgs.append(img)
+        imgs.append(native.resize_cubic_u8(np.asarray(img, np.uint8),
+                                           resize_hw))
         labels.append(lab)
     labels = None if labels[0] is None else np.stack(labels)
     return np.stack(imgs), labels
@@ -415,7 +414,7 @@ class LabelGeneratorBase:
         with timers.stage("upload"):
             images_uint8 = np.ascontiguousarray(images_uint8)
             host, wire, ready = self._upload(
-                pack_yuv420(images_uint8)
+                native.pack_yuv420(images_uint8)
                 if self.cfg.upload_format == "yuv420" else images_uint8)
         return {"wire": wire, "host": [host], "ready": [(wire, ready)]}
 
@@ -624,6 +623,14 @@ class LabelGeneratorBase:
                 np.save(os.path.join(cfg.out_dir, base), up_road[b])
                 np.save(os.path.join(cfg.out_dir, base + "_all_cluster"),
                         up_cluster[b])
+                if labels is None:
+                    # without ground truth the raw 0/1 mask is also
+                    # written as a PNG under the image's file name, the
+                    # format the demo-video compositor reads (reference
+                    # utils/apply_spalign_kmeans.py:70-71)
+                    write_png(os.path.join(cfg.out_dir,
+                                           os.path.basename(img_fn)),
+                              up_road[b].astype(np.uint8))
         if writer is not None:
             writer.append_many(records)
         return records

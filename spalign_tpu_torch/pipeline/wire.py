@@ -2,9 +2,11 @@
 
 BT.601 full-range YCbCr with 2x2-subsampled chroma: 1.5 B/px, half the
 bytes of rgb8 (counterpart of ``spalign_tpu/pipeline/wire.py``).  The
-host packs in numpy with cv2's own integer arithmetic, so the packed
-bytes equal ``cv2.cvtColor(..., COLOR_RGB2YCrCb)`` followed by an
-``INTER_AREA`` 2x chroma downscale; the device decodes in torch,
+host packs with cv2's own integer arithmetic, so the packed bytes equal
+``cv2.cvtColor(..., COLOR_RGB2YCrCb)`` followed by an ``INTER_AREA`` 2x
+chroma downscale: the label paths call the host library's
+``native.pack_yuv420`` (C++, threaded over images); ``pack_yuv420``
+here is its plain numpy version.  The device decodes in torch,
 bit-exact with the JAX decode.
 """
 

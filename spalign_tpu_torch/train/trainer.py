@@ -5,7 +5,7 @@ running averages updated), the loss, backward, the optimizer.  The loss
 and gradient norm stay on the device; the host reads them only at
 ``log_interval``.  One card only: the JAX package's data-parallel mesh
 (global-batch BN across chips) becomes DDP with SyncBatchNorm in a later
-slice (ROADMAP queue 1, item 13).
+slice (ROADMAP queue 1, item 2).
 
 Optimizers match the reference recipes (train_segnet.py:230-240, 260-263):
 Adam (the README recipe; chainer's and optax's defaults, lr 1e-3) or
@@ -83,7 +83,7 @@ class Trainer:
             raise NotImplementedError(
                 f"num_devices={cfg.num_devices}: the port trains on one "
                 "card; data-parallel training (DDP with SyncBatchNorm) is "
-                "ROADMAP queue 1, item 13")
+                "ROADMAP queue 1, item 2")
         self.cfg = cfg
         self.device = resolve_device(device)
         if self.device.type == "cuda":

@@ -121,6 +121,37 @@ def test_superpixel_align_matches_jax(pos_scale):
                                atol=1e-5)
 
 
+
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_superpixel_align_chunks_equal_whole_batch(chunk, monkeypatch):
+    """The gather and mean run over chunks of images; any chunk gives
+    the whole batch's result (one chunk of B) bit for bit."""
+    b, hf, wf, c = 3, 10, 12, 16
+    rng = np.random.RandomState(9)
+    fmaps = torch.from_numpy(rng.randn(b, hf, wf, c).astype(np.float32))
+    sps = torch.from_numpy(np.stack([_superpixels(20 + i)
+                                     for i in range(b)]))
+    bits = torch.from_numpy(rng.randint(
+        0, 2 ** tseg.anchor_key_bits(S), (b, sps[0].numel())).astype(
+            np.int32))
+    per_image = 8 * 4 * S * 10 * c  # align_chunk's bytes per image
+    assert talign.align_chunk(S, 10, c) >= b
+    whole_f, whole_v = talign.superpixel_align(fmaps, sps, 10, S,
+                                               random_bits=bits)
+    monkeypatch.setattr(talign, "ALIGN_CHUNK_BYTES", chunk * per_image)
+    assert talign.align_chunk(S, 10, c) == chunk
+    got_f, got_v = talign.superpixel_align(fmaps, sps, 10, S,
+                                           random_bits=bits)
+    np.testing.assert_array_equal(got_f.numpy(), whole_f.numpy())
+    np.testing.assert_array_equal(got_v.numpy(), whole_v.numpy())
+
+
+def test_align_chunk_fits_budget():
+    # the default felzenszwalb unit: S = 1024, A = 10, C = 512
+    n = talign.align_chunk(1024, 10, 512)
+    assert n >= 1 and n * 8 * 4 * 1024 * 10 * 512 <= talign.ALIGN_CHUNK_BYTES
+    assert talign.align_chunk(1 << 20, 10, 512) == 1
+
 def test_bilinear_sample_matches_jax():
     rng = np.random.RandomState(8)
     fm = rng.randn(7, 9, 5).astype(np.float32)

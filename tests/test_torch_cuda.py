@@ -364,3 +364,72 @@ def test_segnet_basic_train_step_launch_counts(cuda, tmp_path):
     assert torch.isfinite(loss)
     assert (tpk.pool2x2.launches, tpk.scatter2x2.launches,
             tpk.gather2x2.launches) == (4, 8, 4)
+
+
+# ---- the host library's yuv420 pack and real image files on the card ----
+
+
+def test_card_label_path_packs_with_the_host_library(cuda, monkeypatch):
+    """A yuv420 unit on the card is packed by native.pack_yuv420 (C++),
+    never by the numpy pack, and the device decodes it to the images the
+    numpy pack gives."""
+    from spalign_tpu_torch import config, native
+    from spalign_tpu_torch.pipeline import wire
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+
+    def boom(*a, **k):
+        raise AssertionError("numpy pack called")
+
+    calls = []
+    real = native.pack_yuv420
+
+    def spy(images):
+        calls.append(images.shape)
+        return real(images)
+
+    monkeypatch.setattr(wire, "pack_yuv420", boom)
+    monkeypatch.setattr(native, "pack_yuv420", spy)
+    cfg = config.LabelGenConfig(
+        batchsize=3, resize_shape=(112, 112), upload_format="yuv420",
+        save_masks=False, superpixel=config.SuperpixelConfig(
+            method="slic", n_slic_segments=40, slic_iters=4,
+            slic_enforce_connectivity=False))
+    gen = SpalignLabelGenerator(cfg)
+    imgs = _scenes(3).resized_batch(range(3), (112, 112))[0]
+    prepared = gen._host_prepare(imgs)
+    gen._wait_ready(prepared)
+    assert calls == [imgs.shape]
+    monkeypatch.undo()
+    want = wire.decode_yuv420(torch.from_numpy(wire.pack_yuv420(imgs)),
+                              (112, 112))
+    assert torch.equal(gen.decode(prepared["wire"]).cpu(), want)
+
+
+def test_train_cli_step_on_the_card_from_png_files(cuda, tmp_path):
+    """One cli.train step on the card from PNG files written by the
+    port's encoder: the pooling kernels launch, the loss is finite."""
+    import zipfile
+
+    from spalign_tpu_torch.cli import train as train_cli
+    from spalign_tpu_torch.data.png import encode_png
+
+    scenes = _scenes(2, (64, 128))
+    img_zip, mask_dir = str(tmp_path / "imgs.zip"), tmp_path / "masks"
+    mask_dir.mkdir()
+    with zipfile.ZipFile(img_zip, "w") as zf:
+        for i in range(2):
+            img, lab = scenes[i]
+            key = f"city_000000_{i:06d}_leftImg8bit"
+            zf.writestr(f"train/city/{key}.png", encode_png(img))
+            np.save(mask_dir / key, (lab == 7).astype(np.uint8))
+    tpk.reset_launches()
+    trainer, _ = train_cli.main([
+        "--train_img_zip", img_zip, "--train_label_zip", str(mask_dir),
+        "--batchsize", "2", "--input_shape", "32", "64", "--optimizer",
+        "Adam", "--train_limit", "1", "--log_interval", "1",
+        "--result_dir", str(tmp_path / "run")])
+    torch.cuda.synchronize()
+    assert trainer.step == 1
+    assert (tpk.pool2x2.launches, tpk.scatter2x2.launches,
+            tpk.gather2x2.launches) == (4, 8, 4)
+    assert (tmp_path / "run" / "snapshot_iter_1").exists()

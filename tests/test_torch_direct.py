@@ -407,8 +407,10 @@ def test_cli_runs_parity_and_felzenszwalb(extra, tmp_path):
 
 @pytest.mark.parametrize("extra,error", [
     (["--save_images"], NotImplementedError),
+    # the Cityscapes sources are ported: a missing directory raises as
+    # the JAX dataset does
     (["--synthetic", "0", "--cityscapes_dir", "/nonexistent"],
-     NotImplementedError),
+     ValueError),
     (["--weights", "drn.pkl"], NotImplementedError),
 ])
 def test_cli_unported_options_raise(extra, error, tmp_path):

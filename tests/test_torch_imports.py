@@ -1,5 +1,5 @@
 """Rules of the port: spalign_tpu_torch/ and chip_smoke.py import no JAX,
-flax, cv2 or spalign_tpu, and the entry points default to CUDA and
+flax, cv2, PIL or spalign_tpu, and the entry points default to CUDA and
 raise without it instead of falling back to the CPU."""
 
 import ast
@@ -12,6 +12,7 @@ import torch
 
 from spalign_tpu_torch import config
 from spalign_tpu_torch.cli import label_gen as cli_label_gen
+from spalign_tpu_torch.cli import train as cli_train
 from spalign_tpu_torch.kernels.slic import slic
 from spalign_tpu_torch.models.drn import DRN_FACTORIES
 from spalign_tpu_torch.models.segnet import build_segnet
@@ -24,7 +25,8 @@ from spalign_tpu_torch.train.evaluator import Evaluator
 from spalign_tpu_torch.train.trainer import Trainer, build_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "spalign_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL",
+             "spalign_tpu")
 PORT_FILES = sorted((ROOT / "spalign_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -66,6 +68,9 @@ def test_the_scan_sees_the_whole_package():
             "spalign_tpu_torch/eval/results.py",
             "spalign_tpu_torch/cli/common.py",
             "spalign_tpu_torch/cli/label_gen.py",
+            "spalign_tpu_torch/cli/train.py",
+            "spalign_tpu_torch/data/png.py",
+            "spalign_tpu_torch/data/cityscapes.py",
             "spalign_tpu_torch/train/trainer.py",
             "chip_smoke.py"} <= names
 
@@ -81,6 +86,7 @@ def test_entry_points_default_to_cuda():
     assert _default(make_label_generator) == "cuda"
     assert _default(compute_superpixels) == "cuda"
     assert cli_label_gen.get_args(["--synthetic", "1"]).device == "cuda"
+    assert cli_train.get_args([]).device == "cuda"
     assert _default(slic) == "cuda"
     for factory in DRN_FACTORIES.values():
         assert _default(factory) == "cuda"
@@ -111,6 +117,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         DRN_FACTORIES["drn_c_26"]()
     with pytest.raises(RuntimeError, match="CUDA"):
         Trainer(config.TrainConfig(result_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_train.main(["--result_dir", str(tmp_path)])
     with pytest.raises(RuntimeError, match="CUDA"):
         Evaluator(None, list, (8, 8))
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -189,6 +189,45 @@ def test_masks_saved_at_label_resolution(pair, tmp_path):
     assert (tmp_path / "result.json").exists()
 
 
+
+class _ImagesOnly:
+    """A dataset without ground truth: items are bare images."""
+
+    def __init__(self, ds):
+        self.ds = ds
+
+    def __len__(self):
+        return len(self.ds)
+
+    def __getitem__(self, i):
+        return self.ds[i][0]
+
+    def image_name(self, i):
+        return self.ds.image_name(i)
+
+
+def test_no_gt_run_writes_png_masks(pair, tmp_path):
+    """Without labels each raw 0/1 mask is also written as a PNG under
+    the image's file name (JAX label_gen.py:727-736), equal to its
+    .npy."""
+    import cv2
+
+    from spalign_tpu_torch.data.png import decode_png
+
+    *_, sd, ds = pair
+    cfg = _port_cfg(out_dir=str(tmp_path), save_masks=True)
+    gen = tlg.SpalignLabelGenerator(cfg, state_dict=sd, device="cpu")
+    recs = gen.process_dataset(_ImagesOnly(ds))
+    assert len(recs) == len(ds) and "road_iou" not in recs[0]
+    for i in range(len(ds)):
+        name = ds.image_name(i)
+        mask = np.load(tmp_path / (name[:-4] + ".npy"))
+        assert mask.shape == HW
+        np.testing.assert_array_equal(
+            decode_png((tmp_path / name).read_bytes(), color=False), mask)
+        np.testing.assert_array_equal(
+            cv2.imread(str(tmp_path / name), cv2.IMREAD_GRAYSCALE), mask)
+
 def test_downscaled_superpixels_run(pair):
     """slic_device_downscale=2: SLIC and everything after the superpixel
     map at 56x56, the DRN at 112x112."""

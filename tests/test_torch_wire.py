@@ -49,3 +49,23 @@ def test_roundtrip_on_scenes_matches_jax():
 def test_odd_shape_rejected():
     with pytest.raises(ValueError):
         twire.yuv420_bytes_per_image((63, 64))
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2), (3, 64, 96), (7, 30, 46),
+                                   (1, 1024, 2048)])
+def test_native_pack_equals_plain(shape):
+    """The host library's pack (threaded over images) is bit-equal to the
+    numpy pack, for odd batch sizes and a full Cityscapes frame."""
+    from spalign_tpu_torch import native
+
+    rng = np.random.RandomState(sum(shape))
+    imgs = rng.randint(0, 256, shape + (3,)).astype(np.uint8)
+    np.testing.assert_array_equal(native.pack_yuv420(imgs),
+                                  twire.pack_yuv420(imgs))
+
+
+def test_native_pack_rejects_odd_shape():
+    from spalign_tpu_torch import native
+
+    with pytest.raises(ValueError):
+        native.pack_yuv420(np.zeros((2, 63, 64, 3), np.uint8))
