@@ -1,5 +1,6 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the label
-path (stage 1), then SegNetBasic self-training on its labels (stage 2).
+path (stage 1), then SegNetBasic self-training on its labels (stage 2):
+training, relabeling and rounds.
 
     python3 chip_smoke.py
 
@@ -98,6 +99,24 @@ Run from the root of the repository on a machine with one CUDA GPU and
                cli.train on the image zip and the directory run's masks at
                the reference recipe for 12 steps, evaluated on 8 frames at
                1024x2048 (the pooling kernels must launch)
+  selftrain    two self-training rounds (RoundsDriver) on real_files' tree
+               at the reference recipe: SegNetBasic, Adam, B = 8, 512x1024,
+               eval 1024x2048, float32 without TF32, 10 steps a round, the
+               label CLI's masks as round 1's labels, the soft loss from
+               round 2 on round 1's float16 network-resolution scores;
+               then ``python -m spalign_tpu_torch.cli.relabel`` on round 2's
+               snapshot in the reference's disk format (eval store,
+               float32).  Seconds and ms per step of each round, relabel
+               images/s and host seconds per batch by stage, zip bytes,
+               road IoU, peak memory, pooling launches (exact counts);
+               channel 1 of every stored score must be 1 - ch0 bit for
+               bit, round 2's reader must pair round 1's zip, and the
+               CLI's first 2 frames must equal a CPU re-run on >= 0.999 of
+               the PRED pixels with a mean score delta <= 1e-3
+  data_parallel  3 train steps of the reference recipe under a one-rank
+               NCCL group (env://, a free port) against the same steps
+               without a group: losses, parameters and BN statistics
+               bit-equal (deterministic cuDNN algorithms)
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -138,6 +157,9 @@ S_LARGE = 4096
 # real_files: the fake Cityscapes tree, the frames of its val zips and of
 # its no-label file list, and the train CLI's steps
 REAL_SCENES, VAL_FRAMES, LIST_FRAMES, REAL_TRAIN_STEPS = 60, 8, 30, 12
+# selftrain: rounds, steps a round, frames re-run on the CPU; data_parallel
+SELFTRAIN_ROUNDS, ROUND_STEPS, CPU_FRAMES, DP_STEPS = 2, 10, 2, 3
+TRAIN_HW = (512, 1024)  # the reference recipe's input shape
 CITIES = ("aachen", "bochum", "bremen")
 POOL_SOURCE = "spalign_tpu_torch/csrc/pooling.cu"
 POOL_REPLACES = {"pool2x2": "spalign_tpu/kernels/pooling_pallas.py:83",
@@ -1574,6 +1596,7 @@ def real_files_phase():
            "train_losses": [r["main/loss"] for r in steps],
            "train_launches": train_launches, "val": val[-1] if val else None}
     emit(out)
+    paths["labels_dir"] = dir_out
     check(round_trip, "decode(encode(frame)) == frame")
     check(resize_equal, "resize equals its plain version")
     check(golden == GOLDEN_RESIZE_SHA256, "golden resize hash")
@@ -1594,7 +1617,328 @@ def real_files_phase():
           "finite val metrics at 1024x2048")
     check(all(v > 0 for v in train_launches.values()),
           f"the train CLI launched the pooling kernels: {train_launches}")
+    return out, paths
+
+
+def pooling_counts():
+    from spalign_tpu_torch.kernels import pooling as pk
+
+    return {"pool2x2": pk.pool2x2.launches,
+            "scatter2x2": pk.scatter2x2.launches,
+            "gather2x2": pk.gather2x2.launches}
+
+
+def relabel_summary(records, seconds, batch):
+    """Images/s of a relabel run, its mean host seconds per batch by
+    stage (every ``batch`` records share their batch's stages) and the
+    mean road IoU of its PREDs against the gt."""
+    per_batch = records[::batch]
+    return {"images": len(records), "seconds": seconds,
+            "images_per_s": len(records) / seconds,
+            "batch_stage_seconds": {
+                k[5:]: float(np.mean([r[k] for r in per_batch]))
+                for k in records[0] if k.startswith("time_")},
+            "mean_road_iou": float(np.mean([r["road_iou"]
+                                            for r in records]))}
+
+
+def read_records(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def ch1_is_one_minus_ch0(path):
+    """Every ``*_scores`` member of the zip at ``path`` has channel 1
+    equal to 1 - channel 0 bit for bit; returns the members checked."""
+    from spalign_tpu_torch import native
+
+    n = 0
+    with np.load(path) as npz:
+        for k in npz.files:
+            if not k.endswith("_scores"):
+                continue
+            s = npz[k]
+            want = (native.one_minus_f16_reference(s[0])
+                    if s.dtype == np.float16
+                    else (1.0 - s[0].astype(np.float32)).astype(s.dtype))
+            check(np.array_equal(s[1].view(np.uint8), want.view(np.uint8)),
+                  f"{k}: channel 1 == 1 - channel 0 bit for bit")
+            n += 1
+    return n
+
+
+def selftrain_phase(paths):
+    """Two self-training rounds on real_files' fake Cityscapes tree at the
+    reference recipe (the label CLI's masks as the initial labels; soft
+    loss, so round 2 reads round 1's float16 network-resolution scores),
+    then the relabel CLI on round 2's snapshot in the reference's disk
+    format, held to a CPU re-run of 2 frames."""
+    import torch
+
+    from spalign_tpu_torch.config import RoundsConfig, TrainConfig
+    from spalign_tpu_torch.data.cityscapes import ZippedCityscapesRoadDataset
+    from spalign_tpu_torch.data.estimated import EstimatedCityscapesDataset
+    from spalign_tpu_torch.kernels import pooling as pk
+    from spalign_tpu_torch.models.segnet import build_segnet
+    from spalign_tpu_torch.selftrain import RoundsDriver
+    from spalign_tpu_torch.selftrain import rounds as rounds_mod
+    from spalign_tpu_torch.selftrain.relabel import relabel_dataset
+    from spalign_tpu_torch.selftrain.rounds import _Subset
+    from spalign_tpu_torch.train.checkpoints import (find_snapshot,
+                                                     load_predictor)
+    from spalign_tpu_torch.train.trainer import Trainer
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_selftrain_")
+    input_hw = TRAIN_HW
+    cfg = RoundsConfig(n_round=SELFTRAIN_ROUNDS, iteration=ROUND_STEPS,
+                       val_iteration=ROUND_STEPS, loss="soft", batchsize=8,
+                       result_base_dir=root, eval_shape=FULL_HW,
+                       score_dtype="float16", score_store="network")
+    tcfg = TrainConfig(model="basic", optimizer="Adam",
+                       input_shape=input_hw, eval_shape=FULL_HW,
+                       compute_dtype="float32")
+
+    def make_train_dataset(label_source, use_soft):
+        return EstimatedCityscapesDataset(
+            paths["img_zip"], label_source or paths["labels_dir"], input_hw,
+            use_soft_label=use_soft)
+
+    def make_relabel_dataset():
+        return ZippedCityscapesRoadDataset(paths["img_zip"],
+                                           paths["label_zip"], input_hw)
+
+    stamps = []  # (step, seconds) at the end of every train step
+
+    class StepClock(Trainer):
+        def train_step(self, images, labels):
+            out = super().train_step(images, labels)
+            torch.cuda.synchronize()
+            stamps.append((self.step, time.perf_counter()))
+            return out
+
+    class TimedRounds(RoundsDriver):
+        """The driver with a clock around each round's training and
+        relabel."""
+        seconds = {}
+
+        def _timed(self, key, fn, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            self.seconds[key] = time.perf_counter() - t0
+            return out
+
+        def _train_round(self, n_round, label_source, resume_state=None):
+            return self._timed(f"train_round{n_round}", super()._train_round,
+                               n_round, label_source, resume_state)
+
+        def _relabel(self, n_round, result_dir):
+            return self._timed(f"relabel_round{n_round}", super()._relabel,
+                               n_round, result_dir)
+
+    driver = TimedRounds(cfg, tcfg, make_train_dataset, make_relabel_dataset)
+    rounds_mod.Trainer = StepClock
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pk.reset_launches()
+        t0 = time.time()
+        final_dir, final_zip = driver.run()
+        torch.cuda.synchronize()
+        t_rounds = time.time() - t0
+        launches = pooling_counts()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        rounds_mod.Trainer = Trainer
+
+    rounds = []
+    for k in range(1, SELFTRAIN_ROUNDS + 1):
+        it = ROUND_STEPS * k
+        steps = [t for s, t in stamps if it - ROUND_STEPS < s <= it]
+        rdir = os.path.join(root, f"train_round{k}")
+        zip_path = os.path.join(rdir, f"iter-{it}_eval-train.0.zip")
+        records = read_records(os.path.join(rdir, f"iter-{it}_eval-train",
+                                            "result.json"))
+        rounds.append({
+            "loss": "ce" if k == 1 else cfg.loss,
+            "train_seconds": driver.seconds[f"train_round{k}"],
+            # steps 3-10 of the round (its first steps tune cuDNN)
+            "train_ms_per_step": (steps[-1] - steps[1]) / (len(steps) - 2)
+            * 1e3,
+            "relabel": relabel_summary(
+                records, driver.seconds[f"relabel_round{k}"], cfg.batchsize),
+            "zip_bytes": os.path.getsize(zip_path),
+            "score_members_checked": ch1_is_one_minus_ch0(zip_path)})
+    r1_zip = os.path.join(root, "train_round1",
+                          f"iter-{ROUND_STEPS}_eval-train.0.zip")
+    round2_reader = EstimatedCityscapesDataset(
+        paths["img_zip"], r1_zip, input_hw, use_soft_label=True)
+
+    # the relabel CLI on round 2's snapshot, in the reference's format
+    cli_out = os.path.join(root, "relabel_cli")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.time()
+    proc = subprocess.run(
+        [sys.executable, "-m", "spalign_tpu_torch.cli.relabel",
+         "--param_dir", final_dir, "--img_zip_fn", paths["img_zip"],
+         "--label_zip_fn", paths["label_zip"], "--out_dir", cli_out,
+         "--soft_label", "--score_store", "eval", "--score_dtype",
+         "float32"], cwd=repo, capture_output=True, text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": repo})
+    t_cli = time.time() - t0
+    check(proc.returncode == 0,
+          f"cli.relabel exited {proc.returncode}: {proc.stderr[-2000:]}")
+    said = re.search(r"in ([0-9.]+) s \(([0-9.]+) images/s\)", proc.stdout)
+    check(said is not None, f"cli.relabel's summary: {proc.stdout[-500:]}")
+    cli_zip = cli_out + ".0.zip"
+    cli_records = read_records(os.path.join(cli_out, "result.json"))
+    cli = relabel_summary(cli_records, float(said.group(1)), cfg.batchsize)
+    cli.update({"process_seconds": t_cli, "zip_bytes":
+                os.path.getsize(cli_zip),
+                "score_members_checked": ch1_is_one_minus_ch0(cli_zip)})
+
+    # the first frames of the CLI's output against a CPU re-run
+    cpu_zip = os.path.join(root, "relabel_cpu.0.zip")
+    t0 = time.time()
+    relabel_dataset(build_segnet("basic", device="cpu"),
+                    load_predictor(find_snapshot(final_dir)),
+                    _Subset(make_relabel_dataset(), CPU_FRAMES), cpu_zip,
+                    eval_shape=FULL_HW, batch_size=CPU_FRAMES,
+                    score_dtype=np.float32, device="cpu")
+    t_cpu = time.time() - t0
+    agree, score_err = [], []
+    with np.load(cpu_zip) as cpu, np.load(cli_zip) as card:
+        for k in cpu.files:
+            if k.endswith("_scores"):
+                score_err.append(np.abs(cpu[k] - card[k]))
+            else:
+                agree.append(float(np.mean(cpu[k] == card[k])))
+    score_err = np.stack(score_err)
+
+    out = {"phase": "selftrain", "frames": len(round2_reader),
+           "input_shape": list(input_hw), "eval_shape": list(FULL_HW),
+           "rounds": rounds, "rounds_seconds": t_rounds,
+           "final_dir_steps": stamps[-1][0], "launches": launches,
+           "peak_memory_bytes": peak, "relabel_cli": cli,
+           "cpu_rerun": {"frames": CPU_FRAMES, "seconds": t_cpu,
+                         "pred_agreement": agree,
+                         "score_max_abs_err": float(score_err.max()),
+                         "score_mean_abs_err": float(score_err.mean()),
+                         "score_share_above_1e-3":
+                         float((score_err > 1e-3).mean())}}
+    emit(out)
+    steps_run = SELFTRAIN_ROUNDS * ROUND_STEPS
+    relabel_batches = SELFTRAIN_ROUNDS * -(-REAL_SCENES // cfg.batchsize)
+    check(launches == {"pool2x2": 4 * (steps_run + relabel_batches),
+                       "scatter2x2": 8 * steps_run + 4 * relabel_batches,
+                       "gather2x2": 4 * steps_run},
+          f"pooling launches of {steps_run} steps and {relabel_batches} "
+          f"relabel batches, got {launches}")
+    check(final_zip == os.path.join(
+        final_dir, f"iter-{steps_run}_eval-train.0.zip"), "round 2's zip")
+    check(all(r["relabel"]["images"] == REAL_SCENES for r in rounds)
+          and cli["images"] == REAL_SCENES, "every frame relabeled")
+    check(all(r["score_members_checked"] == REAL_SCENES for r in rounds)
+          and cli["score_members_checked"] == REAL_SCENES,
+          "a score member per frame")
+    check(len(round2_reader) == REAL_SCENES,
+          "round 2's reader pairs round 1's zip with every frame")
+    check(all(np.isfinite(r["relabel"]["mean_road_iou"]) for r in rounds),
+          "finite road IoU")
+    check(min(agree) >= 0.999, f"PREDs agree with the CPU on >= 0.999: "
+          f"{agree}")
+    # the mean, not the max: SegNet's argmax pooling is discontinuous, and
+    # a pooling window whose values lie within float32 noise of each other
+    # moves the scores around it when the two devices round differently
+    check(float(score_err.mean()) <= 1e-3,
+          f"scores within 1e-3 of the CPU on average: {score_err.mean()}")
     return out
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def data_parallel_phase():
+    """DP_STEPS train steps of the reference recipe under a one-rank NCCL
+    group against the same steps without a group, from the same weights
+    and batches: bit-equal parameters, BN running statistics and losses."""
+    import torch
+    import torch.distributed as dist
+
+    from spalign_tpu_torch.config import TrainConfig
+    from spalign_tpu_torch.kernels import pooling as pk
+    from spalign_tpu_torch.pipeline.label_gen import nn_resize_np
+    from spalign_tpu_torch.train.trainer import Trainer
+
+    imgs, gts = val_batch()
+    labels = nn_resize_np(gts, TRAIN_HW)
+    batches = [(np.roll(imgs, k, 0), np.roll(labels, k, 0))
+               for k in range(DP_STEPS)]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    cfg = TrainConfig(model="basic", batchsize=8, input_shape=TRAIN_HW,
+                      optimizer="Adam", loss="ce", result_dir=tmp)
+
+    def run():
+        trainer = Trainer(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(*trainer.to_device(*b))["loss"]
+                  for b in batches]
+        torch.cuda.synchronize()
+        return (trainer, [float(v) for v in losses],
+                {k: v.clone() for k, v in trainer.model.state_dict().items()},
+                time.perf_counter() - t0)
+
+    # deterministic cuDNN algorithms, so that two runs can be bit-equal
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    try:
+        _, want_losses, want, t_plain = run()
+        os.environ.update(env)
+        dist.init_process_group("nccl", init_method="env://", rank=0,
+                                world_size=1)
+        try:
+            pk.reset_launches()
+            trainer, got_losses, got, t_group = run()
+            launches = pooling_counts()
+            ones = torch.ones(4, device=trainer.device)
+            dist.all_reduce(ones)
+            backend = dist.get_backend()
+            world = trainer.world
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for k in env:
+            os.environ.pop(k, None)
+    equal = {k: bool(torch.equal(got[k], v)) for k, v in want.items()}
+    out = {"phase": "data_parallel", "backend": backend, "world_size": world,
+           "device": str(trainer.device), "steps": DP_STEPS,
+           "losses": got_losses, "losses_without_group": want_losses,
+           "state_tensors": len(equal),
+           "state_tensors_bit_equal": sum(equal.values()),
+           "seconds_with_group": t_group,
+           "seconds_without_group": t_plain, "launches": launches,
+           "all_reduce_of_ones": ones.tolist()}
+    emit(out)
+    check(backend == "nccl" and world == 1, "a one-rank NCCL group")
+    check(ones.tolist() == [1.0] * 4, "NCCL all-reduce on one rank")
+    check(got_losses == want_losses, "losses bit-equal without a group")
+    check(all(equal.values()),
+          f"parameters and BN statistics bit-equal: "
+          f"{[k for k, v in equal.items() if not v]}")
+    check(launches == {"pool2x2": 4 * DP_STEPS, "scatter2x2": 8 * DP_STEPS,
+                       "gather2x2": 4 * DP_STEPS},
+          f"4, 8 and 4 pooling launches a step, got {launches}")
+    return out
+
 
 def main() -> int:
     import torch
@@ -1757,7 +2101,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # --- real image files through the label and train CLIs
-    real = real_files_phase()
+    real, real_paths = real_files_phase()
+    torch.cuda.empty_cache()
+
+    # --- self-training rounds and the relabel CLI on those files, then
+    # the train step under a one-rank NCCL group
+    selftrain = selftrain_phase(real_paths)
+    torch.cuda.empty_cache()
+    dp = data_parallel_phase()
 
     # launches over every path that runs a kernel, each path's counts set
     # to 0 just before it and read just after
@@ -1814,7 +2165,9 @@ def main() -> int:
     # train_path and the train CLI's run (its steps and its evaluation)
     for name, v in pool_summary.items():
         by_path = {"train_path": train_launches[name],
-                   "real_files.train_cli": real["train_launches"][name]}
+                   "real_files.train_cli": real["train_launches"][name],
+                   "selftrain": selftrain["launches"][name],
+                   "data_parallel": dp["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": POOL_REPLACES[name],

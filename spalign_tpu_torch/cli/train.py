@@ -7,8 +7,10 @@ PyTorch versions of the kernels).  The train set is the images of
 estimated labels of ``--train_label_zip`` (a directory, zip or .npz of
 .npy masks); the val set is a Cityscapes image and label zip pair,
 evaluated at ``--eval_shape``.  ``--resume`` loads one of the port's
-``torch.save`` snapshots.  One card only: ``--num_devices`` above 1
-raises, as the ``Trainer`` does.
+``torch.save`` snapshots.  Data-parallel over N devices: one process
+per device under ``torchrun --nproc_per_node N ... --num_devices N``
+(NCCL on the card, gloo with ``--device cpu``); ``--batchsize`` stays
+the global batch, and rank 0 writes the logs and snapshots.
 
 Example:
   python -m spalign_tpu_torch.cli.train \\
@@ -17,6 +19,8 @@ Example:
       --val_img_zip data/cityscapes_val_imgs.0.zip \\
       --val_label_zip data/cityscapes_gtFine_val_labels.0.zip \\
       --optimizer Adam --train_limit 2000 --batchsize 8
+  torchrun --nproc_per_node 4 -m spalign_tpu_torch.cli.train \\
+      --num_devices 4 --result_dir results/train_dp ...
 """
 
 from __future__ import annotations
@@ -101,7 +105,14 @@ def config_from_args(args) -> TrainConfig:
 
 
 def main(argv=None):
+    from spalign_tpu_torch.parallel import dist
+
     args = get_args(argv)
+    dist.setup(args.device)  # joins torchrun's process group
+    if args.result_dir is None:
+        # one timestamped directory for all ranks, named by rank 0
+        args.result_dir = dist.broadcast_object(
+            create_result_dir(args.prefix) if dist.rank() == 0 else None)
     cfg = config_from_args(args)
 
     from spalign_tpu_torch.data.estimated import EstimatedCityscapesDataset
@@ -117,7 +128,8 @@ def main(argv=None):
         augment=cfg.augment, use_soft_label=soft, seed=cfg.seed)
     indices = list(range(cfg.n_use_data)) if cfg.n_use_data else None
     loader = PrefetchLoader(train_ds, cfg.batchsize, shuffle=True,
-                            seed=cfg.seed, indices=indices)
+                            seed=cfg.seed, indices=indices,
+                            rank=trainer.rank, world=trainer.world)
     print(f"train dataset: {len(train_ds)}")
 
     evaluator = None
@@ -150,4 +162,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from spalign_tpu_torch.parallel import dist
+
+    try:
+        main()
+    finally:
+        dist.close()

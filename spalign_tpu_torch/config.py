@@ -1,14 +1,17 @@
-"""Typed configuration of the label-generation and training paths.
+"""Typed configuration of the label-generation, training and
+self-training paths.
 
 The port's own copy of the dataclasses of ``spalign_tpu/config.py``
 (same fields, defaults and validation), so that neither package imports
 the other.  ``flatten`` embeds the active config into every result
-record, as the reference does with ``vars(args)``.
+record, as the reference does with ``vars(args)``; ``to_json`` writes
+the rounds driver's ``rounds_args.txt``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -167,9 +170,44 @@ class TrainConfig:
     seed: int = 0
     result_dir: str = "results/train"
     resume: Optional[str] = None
-    # data-parallel ranks; the port trains on one card (None or 1)
+    # data-parallel ranks (torchrun processes); None = the process
+    # group's world size, 1 without a group
     num_devices: Optional[int] = None
     compute_dtype: str = "float32"
+
+
+@dataclass(frozen=True)
+class RoundsConfig:
+    """Self-training rounds (reference utils/run_train_rounds.py:26-67)."""
+
+    n_round: int = 1
+    iteration: int = 2000
+    val_iteration: int = 100
+    loss: str = "ce"
+    augment: bool = False
+    test_mode: bool = False
+    batchsize: int = 8
+    result_base_dir: str = "results"
+    eval_shape: Tuple[int, int] = (1024, 2048)
+    n_labels: Optional[int] = None  # inferred from dataset if None
+    # stored dtype of the soft relabel scores; the reference writes
+    # float32 (labels_from_segnet.py:86-95): set "float32" for disk
+    # parity.  Softmax probabilities quantize to ~1e-4 in float16.
+    score_dtype: str = "float16"
+    # resolution of the stored *_scores members: "network" keeps the
+    # network output resolution (the training reader resizes scores to
+    # the input shape anyway, data/estimated.py); "eval" is the
+    # reference's eval-resolution disk format.  PRED members are the same.
+    score_store: str = "network"
+    # relabel image wire (selftrain/relabel.py): "auto" ships uint8
+    # pixels when the dataset's standardization inverts exactly;
+    # "yuv420" is lossy and opt-in
+    input_wire: str = "auto"
+
+
+def to_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=2, sort_keys=True,
+                      default=str)
 
 
 def flatten(cfg, prefix: str = "") -> dict:

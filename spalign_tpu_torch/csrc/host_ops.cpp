@@ -665,7 +665,12 @@ int32_t spalign_confusion_remapped(const uint8_t* pred, const int32_t* gt,
 // standardization inversion (selftrain/relabel.py _to_u8), without the
 // numpy chain's rint/clip/cast temporaries.
 // nearbyintf under the default FE_TONEAREST mode is round-half-even,
-// matching np.rint bit-for-bit.
+// matching np.rint bit-for-bit.  Contraction is off: a fused
+// multiply-add rounds p*s+m once where numpy rounds twice, and moves a
+// value that lands on .5 after numpy's two roundings (1 in ~10^6 random
+// floats, never a standardized uint8 pixel) to the other integer.
+#pragma GCC push_options
+#pragma GCC optimize("fp-contract=off")
 int32_t spalign_standardize_invert(const float* in, int64_t npix,
                                    const float* mean, const float* std3,
                                    uint8_t* out) {
@@ -683,6 +688,7 @@ int32_t spalign_standardize_invert(const float* in, int64_t npix,
   }
   return 0;
 }
+#pragma GCC pop_options
 
 // ---------------------------------------------------------------------
 // Image I/O of the label and training paths.

@@ -4,7 +4,9 @@ The port's copy of ``spalign_tpu/data/loader.py`` (numpy and threads
 only; for the same seed it yields the same batches in the same order).
 It replaces the reference's MultithreadIterator + forkserver machinery
 (train_segnet.py:195-200): a thread pool decodes/augments examples ahead
-of the training step, with a bounded queue of assembled batches."""
+of the training step, with a bounded queue of assembled batches.  Under
+data parallelism every rank draws the same global-batch order from the
+same seed and loads only its own rows of each batch."""
 
 from __future__ import annotations
 
@@ -14,6 +16,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, Optional, Sequence
 
 import numpy as np
+
+from spalign_tpu_torch.parallel.dist import rank_slice
 
 
 class PrefetchLoader:
@@ -28,13 +32,16 @@ class PrefetchLoader:
       epochs: None = loop forever (training); 1 = one pass (eval).
       drop_last: drop the ragged final batch (training keeps one
         batch shape).
+      rank, world: yield rows [rank*B/world, (rank+1)*B/world) of each
+        global batch (``parallel/dist.py::rank_slice``).
     """
 
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  num_workers: int = 8, prefetch: int = 4,
                  epochs: Optional[int] = None, seed: int = 0,
                  drop_last: bool = True,
-                 indices: Optional[Sequence[int]] = None):
+                 indices: Optional[Sequence[int]] = None,
+                 rank: int = 0, world: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -43,6 +50,7 @@ class PrefetchLoader:
         self.epochs = epochs
         self.seed = seed
         self.drop_last = drop_last
+        self.rank, self.world = rank, world
         self.indices = (np.arange(len(dataset)) if indices is None
                         else np.asarray(indices))
 
@@ -56,7 +64,8 @@ class PrefetchLoader:
             end = len(idx) - (len(idx) % self.batch_size
                               if self.drop_last else 0)
             for i in range(0, end, self.batch_size):
-                yield idx[i: i + self.batch_size]
+                yield rank_slice(idx[i: i + self.batch_size], self.rank,
+                                 self.world)
             epoch += 1
 
     def __iter__(self):

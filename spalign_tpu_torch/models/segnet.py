@@ -18,6 +18,10 @@ Matched to flax:
     running variance takes the biased batch variance (flax's
     ``_compute_stats``; ``torch.nn.functional.batch_norm`` would take the
     unbiased one).  SegNetBasic's BN shift starts at 0.001, ``_CBR``'s at 0.
+    Under a process group of N > 1 ranks, train mode takes the statistics
+    of the global batch, as pjit's global-batch BN does
+    (``nn.SyncBatchNorm`` would swap in torch's unbiased running
+    variance and rejects CPU tensors).
   * Weights: he_normal, variance scaling 2.0 over fan-in, truncated
     normal; biases 0.
   * ``dtype=torch.bfloat16`` is flax's mixed precision: parameters stay
@@ -33,10 +37,12 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.nn.functional import all_reduce
 
 from spalign_tpu_torch.ops.lrn import local_response_normalization
 from spalign_tpu_torch.ops.pooling import max_pool_argmax_2x2, max_unpool_2x2
 from spalign_tpu_torch.ops.resize import bilinear_resize
+from spalign_tpu_torch.parallel.dist import world_size
 from spalign_tpu_torch.utils.device import resolve_device
 
 # stddev of the unit normal truncated to [-2, 2] (flax variance_scaling)
@@ -77,8 +83,8 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x):
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = torch.relu((xf * xf).mean(dim=(0, 2, 3)) - mean * mean)
+            mean, var = (_global_batch_stats(xf) if world_size() > 1
+                         else _batch_stats(xf))
             with torch.no_grad():
                 self.running_mean.mul_(0.9).add_(mean, alpha=0.1)
                 self.running_var.mul_(0.9).add_(var, alpha=0.1)
@@ -89,6 +95,26 @@ class BatchNorm(nn.BatchNorm2d):
         y = (xf - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
         return y if self.compute_dtype is None else y.to(self.compute_dtype)
+
+
+def _batch_stats(xf):
+    """Per-channel (mean, biased variance) of this process's batch."""
+    mean = xf.mean(dim=(0, 2, 3))
+    return mean, torch.relu((xf * xf).mean(dim=(0, 2, 3)) - mean * mean)
+
+
+def _global_batch_stats(xf):
+    """Per-channel (mean, biased variance) of the global batch, from the
+    [sum x, sum x^2, count] of every rank.  The all-reduce is
+    differentiable (its backward sums the ranks' gradients), so the
+    gradient flows through the global statistics as it does under pjit."""
+    c = xf.shape[1]
+    count = xf.new_full((1,), xf.numel() // c)
+    stats = all_reduce(torch.cat([xf.sum(dim=(0, 2, 3)),
+                                  (xf * xf).sum(dim=(0, 2, 3)), count]))
+    n = stats[2 * c]
+    mean = stats[:c] / n
+    return mean, torch.relu(stats[c:2 * c] / n - mean * mean)
 
 
 def _nhwc(x):

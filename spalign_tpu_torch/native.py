@@ -2,8 +2,10 @@
 bindings of ``csrc/host_ops.cpp``.
 
 Counterpart of ``spalign_tpu/native/__init__.py`` with its call
-conventions, plus what the JAX package gets from cv2 on the host: the
-yuv420 wire pack, PNG row un-filtering and the uint8 cubic resize.  The
+conventions (the engines, the scorer and relabel's three passes:
+``one_minus_f16``, ``confusion_remapped``, ``standardize_invert_u8``),
+plus what the JAX package gets from cv2 on the host: the yuv420 wire
+pack, PNG row un-filtering and the uint8 cubic resize.  The
 library is built by g++ at first use (``kernels/_build.py``
 ``HostLibrary``); a failed build raises, and nothing falls back to the
 plain numpy versions.  The ctypes calls release the GIL, so threads run
@@ -11,8 +13,9 @@ them in parallel: the batch functions split their images over up to
 ``HOST_THREADS`` threads.
 
 ``felzenszwalb_reference``, ``enforce_connectivity_reference``,
-``png_unfilter_reference`` and ``resize_cubic_u8_reference`` are the
-plain numpy versions, for the tests only (``pipeline/wire.py``'s
+``png_unfilter_reference``, ``resize_cubic_u8_reference`` and the three
+relabel ``*_reference`` functions are the plain numpy versions, for the
+tests only (``pipeline/wire.py``'s
 ``pack_yuv420`` is the pack's).  ``felzenszwalb_reference`` equals the
 library's partition without the blur (sigma = 0); with it the two blurs
 round differently, and the segment counts agree within one.
@@ -32,13 +35,18 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _I32P = ctypes.POINTER(ctypes.c_int32)
 _U8P = ctypes.POINTER(ctypes.c_uint8)
 _I64P = ctypes.POINTER(ctypes.c_int64)
+_U16P = ctypes.POINTER(ctypes.c_uint16)
 _I32 = ctypes.c_int32
+_I64 = ctypes.c_int64
 
 LIBRARY = HostLibrary("host_ops", {
     "spalign_felzenszwalb": (_I32, [_F32P, _I32, _I32, _I32, ctypes.c_float,
                                     ctypes.c_float, _I32, _I32P]),
     "spalign_enforce_connectivity": (_I32, [_I32P, _I32, _I32, _I32, _I32P]),
     "spalign_confusion": (_I32, [_U8P, _I32, _I32, _U8P, _I32, _I32, _I64P]),
+    "spalign_one_minus_f16": (_I32, [_U16P, _U16P, _I64]),
+    "spalign_confusion_remapped": (_I32, [_U8P, _I32P, _I64, _I64P]),
+    "spalign_standardize_invert": (_I32, [_F32P, _I64, _F32P, _F32P, _U8P]),
     "spalign_pack_yuv420": (_I32, [_U8P, _I32, _I32, _I32, _U8P]),
     "spalign_png_unfilter": (_I32, [_U8P, _I32, ctypes.c_int64, _I32, _U8P]),
     "spalign_resize_cubic_u8": (_I32, [_U8P, _I32, _I32, _I32, _I32, _I32,
@@ -110,6 +118,55 @@ def confusion_vs_labelids(pred_small: np.ndarray,
     if rc < 0:
         raise ValueError("confusion_vs_labelids: invalid arguments")
     return out.reshape(2, 2)
+
+
+def one_minus_f16(x: np.ndarray) -> np.ndarray:
+    """Elementwise ``1 - x`` of a float16 array through a 64K-entry bit
+    table: relabel's channel 1 from channel 0, bit-equal to
+    ``(1.0 - x.astype(float32)).astype(float16)``."""
+    x = np.ascontiguousarray(x, dtype=np.float16)
+    out = np.empty_like(x)
+    if LIBRARY.get().spalign_one_minus_f16(
+            x.view(np.uint16).ctypes.data_as(_U16P),
+            out.view(np.uint16).ctypes.data_as(_U16P), x.size):
+        raise ValueError("one_minus_f16: invalid arguments")
+    return out
+
+
+def confusion_remapped(pred_bool: np.ndarray, gt: np.ndarray) -> np.ndarray:
+    """(2, 2) int64 conf[gt][pred] of a {0, 1} prediction against gt of
+    the same size in {-1, 0, 1}; gt outside {0, 1} is void (relabel's
+    per-image metrics)."""
+    pred = np.ascontiguousarray(pred_bool, dtype=np.uint8)
+    gt = np.ascontiguousarray(gt, dtype=np.int32)
+    if pred.size != gt.size:
+        raise ValueError(f"shape mismatch {pred.shape} vs {gt.shape}")
+    out = np.empty((4,), np.int64)
+    if LIBRARY.get().spalign_confusion_remapped(
+            pred.ctypes.data_as(_U8P), gt.ctypes.data_as(_I32P), pred.size,
+            out.ctypes.data_as(_I64P)):
+        raise ValueError("confusion_remapped: invalid arguments")
+    return out.reshape(2, 2)
+
+
+def standardize_invert_u8(imgs: np.ndarray, mean, std) -> np.ndarray:
+    """``clip(rint(imgs * std + mean), 0, 255)`` as uint8 of (..., 3)
+    float32 images in one pass: relabel's uint8 wire, which recovers the
+    pixels of standardized images."""
+    imgs = np.ascontiguousarray(imgs, dtype=np.float32)
+    if imgs.shape[-1] != 3:
+        raise ValueError(f"expected trailing channel 3, got {imgs.shape}")
+    mean3 = np.ascontiguousarray(np.broadcast_to(
+        np.asarray(mean, np.float32), (3,)))
+    std3 = np.ascontiguousarray(np.broadcast_to(
+        np.asarray(std, np.float32), (3,)))
+    out = np.empty(imgs.shape, np.uint8)
+    if LIBRARY.get().spalign_standardize_invert(
+            imgs.ctypes.data_as(_F32P), imgs.size // 3,
+            mean3.ctypes.data_as(_F32P), std3.ctypes.data_as(_F32P),
+            out.ctypes.data_as(_U8P)):
+        raise ValueError("standardize_invert: invalid arguments")
+    return out
 
 
 def pack_yuv420(images_uint8: np.ndarray) -> np.ndarray:
@@ -367,3 +424,27 @@ def resize_cubic_u8_reference(img: np.ndarray, out_hw) -> np.ndarray:
     for k in range(1, 4):
         o = o + cx[None, :, k, None] * t[:, ix[:, k]]
     return np.clip(np.rint(o), 0, 255).astype(np.uint8)
+
+
+def one_minus_f16_reference(x: np.ndarray) -> np.ndarray:
+    """Plain numpy version of :func:`one_minus_f16`."""
+    return (1.0 - np.asarray(x, np.float16).astype(np.float32)).astype(
+        np.float16)
+
+
+def confusion_remapped_reference(pred_bool: np.ndarray,
+                                 gt: np.ndarray) -> np.ndarray:
+    """Plain numpy version of :func:`confusion_remapped`."""
+    gt_i = np.clip(np.asarray(gt).astype(np.int64), -1, 2)  # void: -1, 2
+    idx = ((gt_i + 1) * 2 + np.asarray(pred_bool).astype(bool)).ravel()
+    c = np.bincount(idx, minlength=8)
+    return np.array([[c[2], c[3]], [c[4], c[5]]], np.int64)
+
+
+def standardize_invert_u8_reference(imgs: np.ndarray, mean,
+                                    std) -> np.ndarray:
+    """Plain numpy version of :func:`standardize_invert_u8`."""
+    imgs = np.asarray(imgs, np.float32)
+    return np.clip(np.rint(imgs * np.asarray(std, np.float32)
+                           + np.asarray(mean, np.float32)),
+                   0, 255).astype(np.uint8)

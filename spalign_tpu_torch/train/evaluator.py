@@ -4,7 +4,11 @@ Counterpart of ``spalign_tpu/train/evaluator.py`` (the reference's
 SemanticSegmentationEvaluator + PrecisionRecallEvaluator,
 train_segnet.py:268-275): an eval-mode forward, scores resized to
 ``eval_shape`` (1024x2048) on the device, argmax, and only the summed
-2x2 confusion and the loss's (sum, count) leave the device.
+2x2 confusion and the loss's (sum, count) leave the device.  Under N > 1
+data-parallel ranks each rank predicts its rows of every eval batch and
+the sums are all-reduced, so the integer confusion equals one device's;
+a ragged tail batch (not divisible by N) runs whole on rank 0 and is
+counted once.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import torch
 
 from spalign_tpu_torch.ops.metrics import confusion_matrix
 from spalign_tpu_torch.ops.resize import bilinear_resize
-from spalign_tpu_torch.utils.device import resolve_device
+from spalign_tpu_torch.parallel import dist as pdist
 
 
 def summarize_confusion(conf) -> dict:
@@ -58,8 +62,9 @@ class Evaluator:
     """Callable evaluator(model) -> metrics dict over a validation loader.
 
     ``batches_fn()`` yields (images (B, H, W, 3) float32, labels (B, H', W')
-    int with -1 = void) host arrays; labels are at ``eval_shape``.
-    device: 'cuda' (default; raises without CUDA) or 'cpu'."""
+    int with -1 = void) host arrays, the GLOBAL batch on every rank;
+    labels are at ``eval_shape``.  device: 'cuda' (default; raises
+    without CUDA; under ``torchrun`` ``cuda:LOCAL_RANK``) or 'cpu'."""
 
     def __init__(self, model, batches_fn: Callable[[], Iterable],
                  eval_shape, n_class: int = 2, device="cuda"):
@@ -67,7 +72,7 @@ class Evaluator:
         self.batches_fn = batches_fn
         self.eval_shape = tuple(eval_shape)
         self.n_class = n_class
-        self.device = resolve_device(device)
+        self.device = pdist.setup(device)
 
     def __call__(self, model=None) -> dict:
         model = self.model if model is None else model
@@ -77,8 +82,14 @@ class Evaluator:
                             device=self.device)
         nll_sum = torch.zeros((), dtype=torch.float64, device=self.device)
         n_valid = torch.zeros((), dtype=torch.int64, device=self.device)
+        world, rank = pdist.world_size(), pdist.rank()
         try:
             for images, labels in self.batches_fn():
+                if len(images) % world == 0:
+                    images = pdist.rank_slice(images, rank, world)
+                    labels = pdist.rank_slice(labels, rank, world)
+                elif rank:
+                    continue  # the ragged tail: rank 0 counts it once
                 conf, s, v = eval_batch(
                     model, torch.as_tensor(images, dtype=torch.float32,
                                            device=self.device),
@@ -89,6 +100,8 @@ class Evaluator:
                 n_valid += v
         finally:
             model.train(was_training)
+        for t in (total, nll_sum, n_valid):
+            pdist.all_reduce_sum(t)
         out = summarize_confusion(total.cpu().numpy())
         out["main/loss"] = float(nll_sum) / max(int(n_valid), 1)
         return out

@@ -1,11 +1,18 @@
-"""SegNet trainer on one card (counterpart of ``spalign_tpu/train/trainer.py``).
+"""Data-parallel SegNet trainer (counterpart of ``spalign_tpu/train/trainer.py``).
 
 The train step is eager PyTorch: forward in train mode (batch statistics,
 running averages updated), the loss, backward, the optimizer.  The loss
 and gradient norm stay on the device; the host reads them only at
-``log_interval``.  One card only: the JAX package's data-parallel mesh
-(global-batch BN across chips) becomes DDP with SyncBatchNorm in a later
-slice (ROADMAP queue 1, item 2).
+``log_interval``.
+
+Data parallelism: one process per device under ``torchrun
+--nproc_per_node N`` (``parallel/dist.py``).  Each rank takes its rows of
+every global batch; batch norm sees the global batch, the ``ce`` loss
+divides by the global valid count, and one all-reduce a step averages
+the flattened gradients (and the loss) before the optimizer, so an
+N-rank step is the one-device step of the JAX package.  At world size 1
+nothing is reduced.  Rank 0 alone writes ``args.txt``, the logs and the
+snapshots.
 
 Optimizers match the reference recipes (train_segnet.py:230-240, 260-263):
 Adam (the README recipe; chainer's and optax's defaults, lr 1e-3) or
@@ -26,8 +33,9 @@ import torch
 
 from spalign_tpu_torch.config import TrainConfig
 from spalign_tpu_torch.models.segnet import build_segnet
-from spalign_tpu_torch.train.losses import get_loss_fn
-from spalign_tpu_torch.utils.device import resolve_device
+from spalign_tpu_torch.parallel import dist as pdist
+from spalign_tpu_torch.train.losses import rank_loss_fn
+from spalign_tpu_torch.utils.device import full_float32
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -73,37 +81,43 @@ class Trainer:
     (train_segnet.py:253-303).
 
     Args:
-      cfg: TrainConfig.
+      cfg: TrainConfig.  ``num_devices``: the ranks of the process group
+        (None: the group's world size, 1 without a group).
       model: a SegNet module (default: ``build_model(cfg, device)``).
-      device: 'cuda' (default; raises without CUDA) or 'cpu'.
+      device: 'cuda' (default; raises without CUDA; under ``torchrun``
+        ``cuda:LOCAL_RANK``) or 'cpu'.
     """
 
     def __init__(self, cfg: TrainConfig, model=None, device="cuda"):
-        if cfg.num_devices not in (None, 1):
-            raise NotImplementedError(
-                f"num_devices={cfg.num_devices}: the port trains on one "
-                "card; data-parallel training (DDP with SyncBatchNorm) is "
-                "ROADMAP queue 1, item 2")
+        self.device = pdist.setup(device)
+        self.world, self.rank = pdist.world_size(), pdist.rank()
+        if cfg.num_devices not in (None, self.world):
+            raise ValueError(
+                f"num_devices={cfg.num_devices} but the process group has "
+                f"{self.world} rank(s): launch one process per device with "
+                f"torchrun --nproc_per_node {cfg.num_devices}")
+        pdist.shard_size(cfg.batchsize, self.world)
         self.cfg = cfg
-        self.device = resolve_device(device)
-        if self.device.type == "cuda":
-            # stated, not inherited: float32 convolutions run in full
-            # float32 (cuDNN would otherwise use TF32)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        full_float32(self.device)
         self.model = (build_model(cfg, self.device) if model is None
                       else model.to(self.device))
         self.model.train()
+        if self.world > 1:
+            # every rank starts from rank 0's weights and statistics
+            for t in self.model.state_dict().values():
+                torch.distributed.broadcast(t, 0)
         self.optimizer, self.scheduler = make_optimizer(
             cfg, self.model.parameters())
-        self.loss_fn = get_loss_fn(cfg.loss)
+        self.loss_fn = rank_loss_fn(cfg.loss, self.world)
         self.step = 0
-        os.makedirs(cfg.result_dir, exist_ok=True)
-        with open(os.path.join(cfg.result_dir, "args.txt"), "w") as f:
-            json.dump(asdict(cfg), f, indent=4, sort_keys=True, default=str)
         self._log_path = os.path.join(cfg.result_dir, "log")
         self._log: list = []
         self._t0 = time.time()
+        if self.rank == 0:
+            os.makedirs(cfg.result_dir, exist_ok=True)
+            with open(os.path.join(cfg.result_dir, "args.txt"), "w") as f:
+                json.dump(asdict(cfg), f, indent=4, sort_keys=True,
+                          default=str)
 
     def to_device(self, images, labels):
         """Host batch (numpy or tensors) -> device tensors."""
@@ -112,14 +126,17 @@ class Trainer:
                 torch.as_tensor(labels, device=self.device))
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> dict:
-        """One update on a device batch; returns device scalars
-        {'loss', 'grad_norm'} without reading them."""
+        """One update on this rank's rows of a global batch (the whole
+        batch at world size 1); returns device scalars {'loss',
+        'grad_norm'} of the global batch without reading them."""
         self.model.train()
         loss = self.loss_fn(self.model(images), labels)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
         grads = [p.grad for p in self.model.parameters()
                  if p.grad is not None]
+        if self.world > 1:
+            loss = self._average(grads, loss.detach())
         grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
                                    for g in grads))
         self.optimizer.step()
@@ -127,6 +144,18 @@ class Trainer:
             self.scheduler.step()
         self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
+
+    def _average(self, grads, loss):
+        """Average the gradients (in place) and the loss over the ranks
+        in one all-reduce; returns the averaged loss."""
+        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
+        torch.distributed.all_reduce(flat)
+        flat /= self.world
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+        return flat[-1]
 
     def state_dict(self) -> dict:
         return {"step": self.step, "model": self.model.state_dict(),
@@ -145,8 +174,11 @@ class Trainer:
     def fit(self, train_iter: Iterable, evaluator=None,
             checkpointer=None):
         """Train until cfg.train_iters.  ``train_iter`` yields (images
-        (B, H, W, 3) float32, labels) host arrays; ``evaluator(model)``
-        returns a metrics dict; ``checkpointer(step, state_dict)``."""
+        (B, H, W, 3) float32, labels) host arrays: this rank's rows of
+        each global batch (``PrefetchLoader(rank=, world=)``), the whole
+        batch at world size 1.  ``evaluator(model)`` returns a metrics
+        dict (every rank calls it); ``checkpointer(step, state_dict)``
+        runs on rank 0."""
         cfg = self.cfg
         fit_t0, fit_step0 = time.time(), self.step
         for images, labels in train_iter:
@@ -173,7 +205,7 @@ class Trainer:
                     ev = evaluator(self.model)
                     self._report({"iteration": step,
                                   **{f"val/{k}": v for k, v in ev.items()}})
-                if checkpointer is not None:
+                if checkpointer is not None and self.rank == 0:
                     checkpointer(step, self.state_dict())
                 self._flush_log()
         self._flush_log()
@@ -182,7 +214,9 @@ class Trainer:
     def _report(self, rec: dict):
         """Stream a JSONL line (log.jsonl) and a stdout row; the
         reference-format ``log`` JSON array is rewritten at eval points
-        and at the end of fit."""
+        and at the end of fit.  Rank 0 only."""
+        if self.rank:
+            return
         self._log.append(rec)
         with open(self._log_path + ".jsonl", "a") as f:
             f.write(json.dumps(rec) + "\n")
@@ -191,5 +225,7 @@ class Trainer:
 
     def _flush_log(self):
         """Chainer-LogReport-format dump (one JSON array named ``log``)."""
+        if self.rank:
+            return
         with open(self._log_path, "w") as f:
             json.dump(self._log, f, indent=2)

@@ -19,3 +19,12 @@ def resolve_device(device) -> torch.device:
             "CUDA is not available: pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return dev
+
+
+def full_float32(dev: torch.device):
+    """Stated, not inherited: float32 convolutions and matmuls on the card
+    run in full float32 (cuDNN and cuBLAS would otherwise take TF32, whose
+    10-bit mantissa moves SegNet's scores by ~1e-3)."""
+    if dev.type == "cuda":
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False

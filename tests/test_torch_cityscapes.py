@@ -301,6 +301,9 @@ def test_train_cli_runs_and_resumes(tree, tmp_path):
 
 
 def test_train_cli_one_card_only(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Outside a process group of 2 ranks, --num_devices 2 raises and
+    names the launcher (the CLI under torchrun: tests/test_torch_ddp.py
+    holds the data-parallel step)."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         train_cli.main(["--num_devices", "2", "--device", "cpu",
                         "--result_dir", str(tmp_path)])

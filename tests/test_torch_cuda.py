@@ -433,3 +433,89 @@ def test_train_cli_step_on_the_card_from_png_files(cuda, tmp_path):
     assert (tpk.pool2x2.launches, tpk.scatter2x2.launches,
             tpk.gather2x2.launches) == (4, 8, 4)
     assert (tmp_path / "run" / "snapshot_iter_1").exists()
+
+
+def test_relabel_on_the_card_equals_cpu_run(cuda, tmp_path):
+    """relabel_dataset on the card (float32, TF32 off) against the same
+    pass on the CPU: the PRED members agree on >= 0.999 of the pixels,
+    channel 1 is 1 - ch0 bit for bit, the mean score delta is below 1e-3
+    (single scores may move where a pooling window ties within float32
+    noise), and the pass launches the pool and scatter kernels."""
+    from spalign_tpu_torch.data.cityscapes import (CITYSCAPES_MEAN,
+                                                   CITYSCAPES_STD)
+    from spalign_tpu_torch.models.segnet import build_segnet
+    from spalign_tpu_torch.selftrain.relabel import relabel_dataset
+
+    scenes = _scenes(4, (64, 128))
+
+    class Std:
+        def __len__(self):
+            return 4
+
+        def image_name(self, i):
+            return scenes.image_name(i)
+
+        def __getitem__(self, i):
+            img, lab = scenes[i]
+            img = (img.astype(np.float32) - CITYSCAPES_MEAN) / CITYSCAPES_STD
+            return img, (lab == 7).astype(np.int32)
+
+    state = build_segnet(device="cpu").state_dict()
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tpk.reset_launches()
+        path = str(tmp_path / f"{dev}.0.zip")
+        relabel_dataset(build_segnet(device=dev), state, Std(), path,
+                        eval_shape=(64, 128), batch_size=3, device=dev)
+        if dev == "cuda":
+            assert (tpk.pool2x2.launches, tpk.scatter2x2.launches) == (8, 8)
+        with np.load(path) as npz:
+            out[dev] = {k: npz[k] for k in npz.files}
+    deltas = []
+    for k, v in out["cpu"].items():
+        got = out["cuda"][k]
+        if k.endswith("_scores"):
+            np.testing.assert_array_equal(got[1], 1.0 - got[0])
+            deltas.append(np.abs(got - v).mean())
+        else:
+            assert np.mean(got == v) >= 0.999, k
+    assert np.mean(deltas) < 1e-3
+
+
+def test_one_rank_nccl_group_is_bit_equal(cuda, tmp_path, monkeypatch):
+    """Two train steps under a one-rank NCCL group equal the steps
+    without a group bit for bit (deterministic cuDNN algorithms)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from spalign_tpu_torch.config import TrainConfig
+    from spalign_tpu_torch.train.trainer import Trainer
+
+    rng = np.random.RandomState(0)
+    imgs = rng.randn(4, 32, 64, 3).astype(np.float32)
+    labels = rng.randint(-1, 2, (4, 32, 64)).astype(np.int32)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    def steps():
+        tr = Trainer(TrainConfig(batchsize=4, input_shape=(32, 64),
+                                 result_dir=str(tmp_path)))
+        losses = [float(tr.train_step(*tr.to_device(imgs, labels))["loss"])
+                  for _ in range(2)]
+        return losses, tr.model.state_dict()
+
+    want_losses, want = steps()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    monkeypatch.setenv("MASTER_ADDR", "127.0.0.1")
+    monkeypatch.setenv("MASTER_PORT", str(port))
+    dist.init_process_group("nccl", init_method="env://", rank=0,
+                            world_size=1)
+    try:
+        got_losses, got = steps()
+    finally:
+        dist.destroy_process_group()
+    assert got_losses == want_losses
+    for k, v in want.items():
+        assert torch.equal(got[k], v), k

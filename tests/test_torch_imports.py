@@ -12,6 +12,8 @@ import torch
 
 from spalign_tpu_torch import config
 from spalign_tpu_torch.cli import label_gen as cli_label_gen
+from spalign_tpu_torch.cli import relabel as cli_relabel
+from spalign_tpu_torch.cli import rounds as cli_rounds
 from spalign_tpu_torch.cli import train as cli_train
 from spalign_tpu_torch.kernels.slic import slic
 from spalign_tpu_torch.models.drn import DRN_FACTORIES
@@ -21,6 +23,7 @@ from spalign_tpu_torch.pipeline.direct import (DirectLabelGenerator,
                                                make_label_generator)
 from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
 from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
+from spalign_tpu_torch.selftrain import RoundsDriver, relabel_dataset
 from spalign_tpu_torch.train.evaluator import Evaluator
 from spalign_tpu_torch.train.trainer import Trainer, build_model
 
@@ -72,7 +75,16 @@ def test_the_scan_sees_the_whole_package():
             "spalign_tpu_torch/data/png.py",
             "spalign_tpu_torch/data/cityscapes.py",
             "spalign_tpu_torch/train/trainer.py",
+            "spalign_tpu_torch/parallel/dist.py",
+            "spalign_tpu_torch/selftrain/relabel.py",
+            "spalign_tpu_torch/selftrain/rounds.py",
+            "spalign_tpu_torch/cli/relabel.py",
+            "spalign_tpu_torch/cli/rounds.py",
             "chip_smoke.py"} <= names
+
+
+_RELABEL_ARGS = ["--param_dir", "p", "--img_zip_fn", "i.zip",
+                 "--label_zip_fn", "l.zip", "--out_dir", "o"]
 
 
 def _default(fn, name="device"):
@@ -87,6 +99,10 @@ def test_entry_points_default_to_cuda():
     assert _default(compute_superpixels) == "cuda"
     assert cli_label_gen.get_args(["--synthetic", "1"]).device == "cuda"
     assert cli_train.get_args([]).device == "cuda"
+    assert cli_rounds.get_args([]).device == "cuda"
+    assert cli_relabel.get_args(_RELABEL_ARGS).device == "cuda"
+    assert _default(relabel_dataset) == "cuda"
+    assert _default(RoundsDriver.__init__) == "cuda"
     assert _default(slic) == "cuda"
     for factory in DRN_FACTORIES.values():
         assert _default(factory) == "cuda"
@@ -123,3 +139,12 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         Evaluator(None, list, (8, 8))
     with pytest.raises(RuntimeError, match="CUDA"):
         build_segnet("basic")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        relabel_dataset(None, None, [], str(tmp_path / "r.0.zip"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RoundsDriver(config.RoundsConfig(), config.TrainConfig(),
+                     lambda *a: None, lambda: None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_relabel.main(_RELABEL_ARGS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_rounds.main(["--result_base_dir", str(tmp_path)])

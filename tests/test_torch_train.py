@@ -184,7 +184,9 @@ def test_loss_decreases(dtype, factor, tmp_path):
 
 
 def test_one_card_only(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Without a process group of 2 ranks, num_devices=2 raises and names
+    the launcher (data parallelism: tests/test_torch_ddp.py)."""
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         Trainer(TrainConfig(num_devices=2, result_dir=str(tmp_path)),
                 device="cpu")
 
