@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the label
 path (stage 1), then SegNetBasic self-training on its labels (stage 2):
-training, relabeling and rounds.
+training, relabeling and rounds; then the remaining tools of the README
+workflow and the ablation sweeps.
 
     python3 chip_smoke.py
 
@@ -117,6 +118,27 @@ Run from the root of the repository on a machine with one CUDA GPU and
                NCCL group (env://, a free port) against the same steps
                without a group: losses, parameters and BN statistics
                bit-equal (deterministic cuDNN algorithms)
+  workflow     the README's remaining tools on what real_files and
+               selftrain wrote, in-process: cli.convert_model --check on a
+               seed-0 DRN's .pth (card against CPU), cli.make_zips of the
+               val images, cli.bottom_half on the val zips (equal to a
+               numpy recompute), cli.mean_result on the label CLI's
+               result.json (equal to aggregate_results), cli.make_table
+               --plot on the rounds (a row a round, a PDF); then
+               cli.demo_video from the train CLI's snapshot over 30 frames
+               (SegNetBasic, input 512x1024, pred 1024x2048, batch 8):
+               frames/s, host seconds a batch by stage, AVI bytes, the
+               frame count of its avih header, pool and scatter launches
+               counted exactly, the JPEG encoder's ms a 2 MP frame (equal
+               to its numpy reference) and the first 2 masks against a CPU
+               re-run (>= 0.999 of the pixels)
+  sweep        cli.sweep in-process on main_path's frames, one unit of 150
+               a value: fig 7 (k = 2..8) on the device-SLIC unit (the
+               Lloyd kernel must launch) and fig 9's felzenszwalb scale at
+               100, 300, 800 on the default unit, images/s and road IoU a
+               value; then one dynamic-k generator against fresh static
+               generators on the same seed stream at k = 2 and 8: equal
+               cluster maps
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -130,6 +152,7 @@ import hashlib
 import json
 import os
 import re
+import struct
 import subprocess
 import sys
 import tempfile
@@ -159,6 +182,8 @@ S_LARGE = 4096
 REAL_SCENES, VAL_FRAMES, LIST_FRAMES, REAL_TRAIN_STEPS = 60, 8, 30, 12
 # selftrain: rounds, steps a round, frames re-run on the CPU; data_parallel
 SELFTRAIN_ROUNDS, ROUND_STEPS, CPU_FRAMES, DP_STEPS = 2, 10, 2, 3
+# workflow: demo_video's frames and batch (the reference's batch 8)
+DEMO_FRAMES, DEMO_BATCH = 30, 8
 TRAIN_HW = (512, 1024)  # the reference recipe's input shape
 CITIES = ("aachen", "bochum", "bremen")
 POOL_SOURCE = "spalign_tpu_torch/csrc/pooling.cu"
@@ -1597,6 +1622,7 @@ def real_files_phase():
            "train_launches": train_launches, "val": val[-1] if val else None}
     emit(out)
     paths["labels_dir"] = dir_out
+    paths["train_dir"] = os.path.join(root, "train")
     check(round_trip, "decode(encode(frame)) == frame")
     check(resize_equal, "resize equals its plain version")
     check(golden == GOLDEN_RESIZE_SHA256, "golden resize hash")
@@ -1686,6 +1712,8 @@ def selftrain_phase(paths):
     from spalign_tpu_torch.selftrain.rounds import _Subset
     from spalign_tpu_torch.train.checkpoints import (find_snapshot,
                                                      load_predictor)
+    from spalign_tpu_torch.data.loader import PrefetchLoader
+    from spalign_tpu_torch.train.evaluator import Evaluator
     from spalign_tpu_torch.train.trainer import Trainer
 
     root = tempfile.mkdtemp(prefix="chip_smoke_selftrain_")
@@ -1737,7 +1765,18 @@ def selftrain_phase(paths):
             return self._timed(f"relabel_round{n_round}", super()._relabel,
                                n_round, result_dir)
 
-    driver = TimedRounds(cfg, tcfg, make_train_dataset, make_relabel_dataset)
+    val_ds = ZippedCityscapesRoadDataset(paths["val_img_zip"],
+                                         paths["val_label_zip"], input_hw)
+
+    def evaluator_factory(trainer):
+        # the val zips evaluated at the eval shape each round (the
+        # rounds' logs then carry the road IoU that make_table reads)
+        return Evaluator(trainer.model, lambda: iter(PrefetchLoader(
+            val_ds, cfg.batchsize, shuffle=False, epochs=1,
+            drop_last=False)), FULL_HW, device="cuda")
+
+    driver = TimedRounds(cfg, tcfg, make_train_dataset, make_relabel_dataset,
+                         evaluator_factory=evaluator_factory)
     rounds_mod.Trainer = StepClock
     try:
         torch.cuda.synchronize()
@@ -1760,7 +1799,12 @@ def selftrain_phase(paths):
         zip_path = os.path.join(rdir, f"iter-{it}_eval-train.0.zip")
         records = read_records(os.path.join(rdir, f"iter-{it}_eval-train",
                                             "result.json"))
+        with open(os.path.join(rdir, "log")) as f:
+            val = [e for e in json.load(f) if "val/main/iou/road" in e
+                   and it - ROUND_STEPS < e["iteration"] <= it]
         rounds.append({
+            "val_batches": len(val) * -(-VAL_FRAMES // cfg.batchsize),
+            "val_road_iou": val[-1]["val/main/iou/road"] if val else None,
             "loss": "ce" if k == 1 else cfg.loss,
             "train_seconds": driver.seconds[f"train_round{k}"],
             # steps 3-10 of the round (its first steps tune cuDNN)
@@ -1816,6 +1860,7 @@ def selftrain_phase(paths):
                 agree.append(float(np.mean(cpu[k] == card[k])))
     score_err = np.stack(score_err)
 
+    paths["rounds_dir"] = root
     out = {"phase": "selftrain", "frames": len(round2_reader),
            "input_shape": list(input_hw), "eval_shape": list(FULL_HW),
            "rounds": rounds, "rounds_seconds": t_rounds,
@@ -1830,11 +1875,14 @@ def selftrain_phase(paths):
     emit(out)
     steps_run = SELFTRAIN_ROUNDS * ROUND_STEPS
     relabel_batches = SELFTRAIN_ROUNDS * -(-REAL_SCENES // cfg.batchsize)
-    check(launches == {"pool2x2": 4 * (steps_run + relabel_batches),
-                       "scatter2x2": 8 * steps_run + 4 * relabel_batches,
+    forwards = relabel_batches + sum(r["val_batches"] for r in rounds)
+    check(launches == {"pool2x2": 4 * (steps_run + forwards),
+                       "scatter2x2": 8 * steps_run + 4 * forwards,
                        "gather2x2": 4 * steps_run},
-          f"pooling launches of {steps_run} steps and {relabel_batches} "
-          f"relabel batches, got {launches}")
+          f"pooling launches of {steps_run} steps and {forwards} relabel "
+          f"and val batches, got {launches}")
+    check(all(r["val_batches"] > 0 and np.isfinite(r["val_road_iou"])
+              for r in rounds), "each round evaluated on the val zips")
     check(final_zip == os.path.join(
         final_dir, f"iter-{steps_run}_eval-train.0.zip"), "round 2's zip")
     check(all(r["relabel"]["images"] == REAL_SCENES for r in rounds)
@@ -1853,6 +1901,250 @@ def selftrain_phase(paths):
     # moves the scores around it when the two devices round differently
     check(float(score_err.mean()) <= 1e-3,
           f"scores within 1e-3 of the CPU on average: {score_err.mean()}")
+    return out
+
+
+def avih_frames(path) -> int:
+    """dwTotalFrames of an AVI's main header (avih)."""
+    with open(path, "rb") as f:
+        head = f.read(4096)
+    i = head.index(b"avih")
+    return struct.unpack("<I", head[i + 8 + 16:i + 8 + 20])[0]
+
+
+def workflow_phase(paths):
+    """The README's remaining tools on what real_files and selftrain
+    wrote: convert_model (card against CPU), make_zips, bottom_half
+    (against a numpy recompute), mean_result (against
+    aggregate_results), make_table --plot, then demo_video from the train
+    CLI's snapshot over DEMO_FRAMES frames at the reference shapes, its
+    pool and scatter launches counted exactly and its first masks held to
+    a CPU re-run."""
+    import zipfile
+
+    import torch
+
+    from spalign_tpu_torch import native
+    from spalign_tpu_torch.cli import (bottom_half, convert_model,
+                                       demo_video, make_table, make_zips,
+                                       mean_result)
+    from spalign_tpu_torch.data.cityscapes import (CITYSCAPES_MEAN,
+                                                   CITYSCAPES_STD)
+    from spalign_tpu_torch.data.labels import create_label_mask
+    from spalign_tpu_torch.data.png import decode_png
+    from spalign_tpu_torch.eval.results import aggregate_results, read_results
+    from spalign_tpu_torch.kernels import pooling as pk
+    from spalign_tpu_torch.models.drn import DRN_FACTORIES
+    from spalign_tpu_torch.models.segnet import build_segnet, predict_labels
+    from spalign_tpu_torch.train.checkpoints import (find_snapshot,
+                                                     load_predictor)
+    from spalign_tpu_torch.utils.video import MJPG_QUALITY
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    root = os.path.dirname(paths["img_zip"])
+    out = {"phase": "workflow"}
+
+    # 1. convert_model on a seed-0 DRN's .pth, the card against the CPU
+    pth = os.path.join(work, "drn_c_26_seed0.pth")
+    torch.save(DRN_FACTORIES["drn_c_26"](device="cpu").state_dict(), pth)
+    t0 = time.time()
+    worst = convert_model.main([pth, os.path.join(work, "drn_port.pth"),
+                                "--check", "--device", "cuda"])
+    out["convert_model"] = {"seconds": time.time() - t0,
+                            "max_abs_delta": worst}
+
+    # 2. make_zips of the val images (the first VAL_FRAMES of the tree)
+    val_zip = os.path.join(work, "val_imgs.0.zip")
+    make_zips.main(["dir", os.path.join(
+        root, "leftImg8bit", "train", "*",
+        f"*_00000[0-{VAL_FRAMES - 1}]_leftImg8bit.png"), val_zip])
+    with zipfile.ZipFile(val_zip) as zf:
+        out["make_zips_members"] = len(zf.namelist())
+
+    # 3. bottom_half on the val zips against a numpy recompute
+    agg = bottom_half.main(["--cityscapes_img_zip", paths["val_img_zip"],
+                            "--cityscapes_label_zip",
+                            paths["val_label_zip"], "--device", "cuda"])
+    ious = []
+    with zipfile.ZipFile(paths["val_label_zip"]) as zf:
+        for name in zf.namelist():
+            gt = create_label_mask(decode_png(zf.read(name), color=False))
+            pred = np.zeros_like(gt)
+            pred[gt.shape[0] // 2:] = 1
+            tp = int(((pred == 1) & (gt == 1)).sum())
+            fp = int(((pred == 1) & (gt == 0)).sum())
+            fn = int(((pred == 0) & (gt == 1)).sum())
+            # float32 IoUs, averaged in float64 (aggregate_results)
+            ious.append(float(np.float32(tp) / np.float32(tp + fp + fn)))
+    out["bottom_half"] = {"road_mean_iou": agg["road_mean_iou"],
+                          "numpy_road_mean_iou": float(np.mean(ious)),
+                          "n": agg["n"]}
+
+    # 4. mean_result on the label CLI's result.json
+    result_json = os.path.join(paths["labels_dir"], "result.json")
+    summary = mean_result.main([result_json])
+    summary_equal = summary == aggregate_results(read_results(result_json))
+
+    # 5. make_table --plot on the rounds
+    csv, pdf = make_table.main([paths["rounds_dir"], "--plot"])
+    with open(csv) as f:
+        table_rows = len(f.read().splitlines()) - 1
+    with open(pdf, "rb") as f:
+        pdf_head = f.read(9)
+    out["make_table"] = {"rows": table_rows, "pdf_bytes":
+                         os.path.getsize(pdf)}
+
+    # 6. demo_video from the train CLI's snapshot at the reference shapes
+    frames_dir = os.path.join(work, "frames")
+    os.makedirs(frames_dir)
+    for fn in paths["images"][:DEMO_FRAMES]:
+        os.symlink(fn, os.path.join(frames_dir, os.path.basename(fn)))
+    demo_dir = os.path.join(work, "demo")
+    torch.cuda.synchronize()
+    pk.reset_launches()
+    demo = demo_video.main([
+        "--param_dir", paths["train_dir"], "--frames_dir", frames_dir,
+        "--out_dir", demo_dir, "--input_shape", *map(str, TRAIN_HW),
+        "--pred_shape", *map(str, FULL_HW), "--batchsize", str(DEMO_BATCH),
+        "--device", "cuda"])
+    torch.cuda.synchronize()
+    demo["launches"] = pooling_counts()
+    avi = os.path.join(demo_dir, "demo.avi")
+    demo["avih_total_frames"] = avih_frames(avi)
+    batches = -(-DEMO_FRAMES // DEMO_BATCH)
+
+    # the JPEG encoder on one 2 MP frame, against its numpy reference
+    with open(paths["images"][0], "rb") as f:
+        frame = decode_png(f.read())
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        jpeg = native.encode_jpeg_rgb(frame, MJPG_QUALITY)
+        runs.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    jpeg_equal = jpeg == native.encode_jpeg_rgb_reference(frame,
+                                                          MJPG_QUALITY)
+    demo["jpeg"] = {"ms_per_2mp_frame": float(np.median(runs)),
+                    "runs_ms": runs, "bytes": len(jpeg),
+                    "reference_ms": (time.perf_counter() - t0) * 1e3,
+                    "equals_reference": jpeg_equal}
+
+    # the first masks against a CPU re-run
+    model = build_segnet("basic", device="cpu")
+    model.load_state_dict(load_predictor(find_snapshot(paths["train_dir"])))
+    raw = []
+    for fn in paths["images"][:CPU_FRAMES]:
+        with open(fn, "rb") as f:
+            raw.append(decode_png(f.read()))
+    small = native.resize_cubic_u8(np.stack(raw), TRAIN_HW)
+    batch = (small.astype(np.float32) - CITYSCAPES_MEAN) / CITYSCAPES_STD
+    t0 = time.time()
+    cpu = predict_labels(model, torch.from_numpy(batch),
+                         pred_shape=FULL_HW).numpy()
+    agree = [float(np.mean(cpu[b] == np.load(os.path.join(
+        demo_dir, os.path.basename(fn)[:-4] + ".npy"))))
+        for b, fn in enumerate(paths["images"][:CPU_FRAMES])]
+    demo["cpu_rerun"] = {"frames": CPU_FRAMES, "seconds": time.time() - t0,
+                         "mask_agreement": agree}
+    out["demo_video"] = demo
+    emit(out)
+    check(worst is not None and worst <= 1e-3,
+          "convert_model's check passed on the card")
+    check(out["make_zips_members"] == VAL_FRAMES, "make_zips member count")
+    check(agg["n"] == VAL_FRAMES and abs(
+        agg["road_mean_iou"] - float(np.mean(ious))) <= 1e-9,
+          "bottom_half's IoU equals the numpy recompute")
+    check(summary_equal, "mean_result's summary equals aggregate_results")
+    check(table_rows == SELFTRAIN_ROUNDS, "a make_table row a round")
+    check(pdf_head == b"%PDF-1.4\n", "the plot's PDF header")
+    check(demo["frames"] == DEMO_FRAMES
+          and demo["avih_total_frames"] == DEMO_FRAMES,
+          "demo_video wrote every frame")
+    check(len([f for f in os.listdir(demo_dir) if f.endswith(".npy")])
+          == DEMO_FRAMES, "a mask a frame")
+    check(demo["launches"] == {"pool2x2": 4 * batches,
+                               "scatter2x2": 4 * batches, "gather2x2": 0},
+          f"demo_video's pooling launches: {demo['launches']}")
+    check(jpeg_equal, "the JPEG encoder equals its numpy reference")
+    check(min(agree) >= 0.999, f"demo masks agree with the CPU: {agree}")
+    return out
+
+
+def sweep_phase(frames, labels):
+    """cli/sweep.py in-process on main_path's frames, one unit a value:
+    fig 7 (k = 2..8) on the device-SLIC unit, which launches the Lloyd
+    kernel, and fig 9's felzenszwalb scale at 100, 300 and 800 on the
+    default unit; then a dynamic-k generator against fresh static ones
+    on one seed stream, k = 2 and 8."""
+    import torch
+
+    from spalign_tpu_torch.cli import sweep as sweep_cli
+    from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
+    dataset = Frames(frames, labels, UNIT)
+    grids = {}
+    build = sweep_cli.build_label_dataset
+    sweep_cli.build_label_dataset = lambda args, hw: dataset
+    try:
+        for name, flags in (
+                ("fig7_device_slic",
+                 ["--grid", "fig7", "--superpixel_method", "slic",
+                  "--slic_no_connectivity", "--n_slic_segments", "100",
+                  "--max_superpixels", "256", "--upload_format", "yuv420"]),
+                ("fig9_felzenszwalb",
+                 ["--grid", "custom", "--param",
+                  "superpixel.felzenszwalb_scale", "--values", "100", "300",
+                  "800"])):
+            torch.cuda.synchronize()
+            reset_counts()
+            t0 = time.time()
+            rows = sweep_cli.main(flags + [
+                "--batchsize", "30", "--groups_per_dispatch", "5",
+                "--sweep_out", os.path.join(work, f"{name}.csv"),
+                "--out_dir", os.path.join(work, name), "--device", "cuda"])
+            torch.cuda.synchronize()
+            grids[name] = {
+                "seconds": time.time() - t0, "launches": read_counts(),
+                "rows": [{"value": v, "images": agg["n"], "seconds": sec,
+                          "images_per_s": agg["n"] / sec,
+                          "road_iou": agg["road_mean_iou"]}
+                         for v, agg, _, sec in rows]}
+    finally:
+        sweep_cli.build_label_dataset = build
+
+    cfg = LabelGenConfig(
+        batchsize=30, upload_format="yuv420", save_masks=False,
+        superpixel=SuperpixelConfig(method="slic", n_slic_segments=100,
+                                    max_superpixels=256,
+                                    slic_enforce_connectivity=False))
+    dyn = SpalignLabelGenerator(cfg, dynamic_k=8)
+    batch = frames[:cfg.batchsize]
+    dynamic_equal = {}
+    for k in (2, 8):
+        dyn.set_n_clusters(k)
+        static = SpalignLabelGenerator(dataclasses.replace(
+            cfg, kmeans=dataclasses.replace(cfg.kmeans, n_clusters=k)))
+        dyn._seed_rng = np.random.RandomState(123)
+        static._seed_rng = np.random.RandomState(123)
+        _, c_dyn, _, _ = dyn.run_batch(batch)
+        _, c_static, _, _ = static.run_batch(batch)
+        dynamic_equal[k] = bool(torch.equal(c_dyn, c_static))
+        del static
+    out = {"phase": "sweep", "grids": grids,
+           "dynamic_equals_static": dynamic_equal}
+    emit(out)
+    fig7 = grids["fig7_device_slic"]
+    check([r["value"] for r in fig7["rows"]] == list(range(2, 9))
+          and all(r["images"] == UNIT for g in grids.values()
+                  for r in g["rows"]), "one unit a value")
+    check(fig7["launches"]["slic_lloyd"] >= len(fig7["rows"]),
+          f"fig 7 launched the Lloyd kernel: {fig7['launches']}")
+    check(all(np.isfinite(r["road_iou"]) for g in grids.values()
+              for r in g["rows"]), "finite road IoU")
+    check(all(dynamic_equal.values()), f"dynamic k equals static k on the "
+          f"card: {dynamic_equal}")
     return out
 
 
@@ -2109,6 +2401,12 @@ def main() -> int:
     selftrain = selftrain_phase(real_paths)
     torch.cuda.empty_cache()
     dp = data_parallel_phase()
+    torch.cuda.empty_cache()
+
+    # --- the README's remaining tools, then the ablation sweeps
+    workflow = workflow_phase(real_paths)
+    torch.cuda.empty_cache()
+    sweep = sweep_phase(frames, labels)
 
     # launches over every path that runs a kernel, each path's counts set
     # to 0 just before it and read just after
@@ -2117,7 +2415,9 @@ def main() -> int:
                    host_sp["slic_connectivity"]["launches"]["slic_lloyd"],
                    "real_files.zip_slic_connectivity":
                    real["label_cli"]["zip_slic_connectivity"]["launches"][
-                       "slic_lloyd"]}
+                       "slic_lloyd"],
+                   "sweep.fig7": sweep["grids"]["fig7_device_slic"][
+                       "launches"]["slic_lloyd"]}
     assign_paths = {
         "overlaps_path": overlaps["launches"],
         "overlaps_felzenszwalb_path.slic_connectivity":
@@ -2167,7 +2467,9 @@ def main() -> int:
         by_path = {"train_path": train_launches[name],
                    "real_files.train_cli": real["train_launches"][name],
                    "selftrain": selftrain["launches"][name],
-                   "data_parallel": dp["launches"][name]}
+                   "data_parallel": dp["launches"][name],
+                   "workflow.demo_video":
+                   workflow["demo_video"]["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": POOL_REPLACES[name],

@@ -65,6 +65,12 @@ def load_drn_weights(args):
         raise NotImplementedError(
             f"--weights {path}: only .pth checkpoints load into the port; "
             "convert a JAX pytree with spalign_tpu_torch.convert.from_jax")
+    return load_pth(path)
+
+
+def load_pth(path: str) -> dict:
+    """A ``.pth`` checkpoint's state_dict (the file holds a state_dict or
+    a module with one), on the CPU."""
     state = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(state, "state_dict"):
         state = state.state_dict()

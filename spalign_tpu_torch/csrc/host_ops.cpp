@@ -884,4 +884,347 @@ int32_t spalign_resize_cubic_u8(const uint8_t* src, int32_t n, int32_t H,
 }
 #pragma GCC pop_options
 
+// Baseline JPEG of one RGB image, as IJG's libjpeg (and libjpeg-turbo)
+// writes it with its defaults: JFIF APP0, YCbCr 4:2:0 (Y 2x2, Cb and Cr
+// 1x1), the integer color conversion of jccolor.c, the h2v2 downsample of
+// jcsample.c (1, 2, 1, 2 rounding bias along a row), the "islow" integer
+// forward DCT of jfdctint.c, the Annex K quantization tables scaled by
+// quality as jcparam.c scales them (baseline: at most 255), the Annex K
+// Huffman tables, byte stuffing, and IJG's edge rules: edges replicated
+// to whole blocks, and the blocks of the last MCU that lie past the
+// image's blocks coded with AC 0 and the DC of the block before them in
+// the MCU (jccoefct.c).  The demo-video writer's MJPG frames.
+namespace {
+
+const uint8_t kZigzag[64] = {
+    0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+const uint8_t kBaseQuant[2][64] = {
+    {16, 11, 10, 16, 24,  40,  51,  61,  12, 12, 14, 19, 26,  58,  60,  55,
+     14, 13, 16, 24, 40,  57,  69,  56,  14, 17, 22, 29, 51,  87,  80,  62,
+     18, 22, 37, 56, 68,  109, 103, 77,  24, 35, 55, 64, 81,  104, 113, 92,
+     49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99},
+    {17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+     24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99,
+     99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99, 99}};
+const uint8_t kDcBits[2][16] = {{0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                {0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+const uint8_t kAcBits[2][16] = {
+    {0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+    {0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+const uint8_t kAcVals[2][162] = {
+    {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06,
+     0x13, 0x51, 0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08,
+     0x23, 0x42, 0xb1, 0xc1, 0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72,
+     0x82, 0x09, 0x0a, 0x16, 0x17, 0x18, 0x19, 0x1a, 0x25, 0x26, 0x27, 0x28,
+     0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44, 0x45,
+     0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58, 0x59,
+     0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+     0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+     0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3,
+     0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6,
+     0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9,
+     0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda, 0xe1, 0xe2,
+     0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2, 0xf3, 0xf4,
+     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+    {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41,
+     0x51, 0x07, 0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91,
+     0xa1, 0xb1, 0xc1, 0x09, 0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1,
+     0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25, 0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26,
+     0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38, 0x39, 0x3a, 0x43, 0x44,
+     0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57, 0x58,
+     0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+     0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87,
+     0x88, 0x89, 0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a,
+     0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4,
+     0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7,
+     0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8, 0xd9, 0xda,
+     0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2, 0xf3, 0xf4,
+     0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+
+struct HuffTable {
+  uint16_t code[256];
+  uint8_t size[256];
+};
+
+// Annex C: code lengths in order of the values, codes counted up.
+void make_huff(const uint8_t* bits, const uint8_t* vals, HuffTable* t) {
+  std::memset(t, 0, sizeof(*t));
+  uint32_t code = 0;
+  int32_t k = 0;
+  for (int32_t len = 1; len <= 16; ++len) {
+    for (int32_t i = 0; i < bits[len - 1]; ++i, ++k) {
+      t->code[vals[k]] = (uint16_t)code++;
+      t->size[vals[k]] = (uint8_t)len;
+    }
+    code <<= 1;
+  }
+}
+
+// jfdctint.c (IJG 6b): 8x8 level-shifted samples in, coefficients scaled
+// by 8 out, in place.
+void fdct_islow(int32_t* d) {
+  const int32_t kC = 13, kP = 2;
+  auto descale = [](int32_t x, int32_t n) {
+    return (x + (1 << (n - 1))) >> n;
+  };
+  for (int32_t pass = 0; pass < 2; ++pass) {
+    const int32_t step = pass == 0 ? 1 : 8, stride = pass == 0 ? 8 : 1;
+    const int32_t sh = pass == 0 ? kC - kP : kC + kP;
+    for (int32_t line = 0; line < 8; ++line) {
+      int32_t* p = d + line * stride;
+      const int32_t t0 = p[0] + p[7 * step], t7 = p[0] - p[7 * step];
+      const int32_t t1 = p[step] + p[6 * step], t6 = p[step] - p[6 * step];
+      const int32_t t2 = p[2 * step] + p[5 * step],
+                    t5 = p[2 * step] - p[5 * step];
+      const int32_t t3 = p[3 * step] + p[4 * step],
+                    t4 = p[3 * step] - p[4 * step];
+      const int32_t t10 = t0 + t3, t13 = t0 - t3;
+      const int32_t t11 = t1 + t2, t12 = t1 - t2;
+      if (pass == 0) {
+        p[0] = (t10 + t11) * (1 << kP);
+        p[4 * step] = (t10 - t11) * (1 << kP);
+      } else {
+        p[0] = descale(t10 + t11, kP);
+        p[4 * step] = descale(t10 - t11, kP);
+      }
+      int32_t z1 = (t12 + t13) * 4433;
+      p[2 * step] = descale(z1 + t13 * 6270, sh);
+      p[6 * step] = descale(z1 + t12 * -15137, sh);
+      z1 = t4 + t7;
+      int32_t z2 = t5 + t6, z3 = t4 + t6, z4 = t5 + t7;
+      const int32_t z5 = (z3 + z4) * 9633;
+      const int32_t u4 = t4 * 2446, u5 = t5 * 16819, u6 = t6 * 25172,
+                    u7 = t7 * 12299;
+      z1 *= -7373;
+      z2 *= -20995;
+      z3 = z3 * -16069 + z5;
+      z4 = z4 * -3196 + z5;
+      p[7 * step] = descale(u4 + z1 + z3, sh);
+      p[5 * step] = descale(u5 + z2 + z4, sh);
+      p[3 * step] = descale(u6 + z2 + z3, sh);
+      p[step] = descale(u7 + z1 + z4, sh);
+    }
+  }
+}
+
+// One 8x8 block of a plane of row stride `stride`, level-shifted, DCT'd
+// and quantized by `div` (quant << 3, jcdctmgr.c's rounding) into q.
+void code_block(const uint8_t* plane, size_t stride, const int32_t* div,
+                int32_t* q) {
+  int32_t d[64];
+  for (int32_t y = 0; y < 8; ++y)
+    for (int32_t x = 0; x < 8; ++x)
+      d[y * 8 + x] = (int32_t)plane[(size_t)y * stride + x] - 128;
+  fdct_islow(d);
+  for (int32_t i = 0; i < 64; ++i) {
+    const int32_t v = d[i], a = (v < 0 ? -v : v) + (div[i] >> 1);
+    const int32_t r = a / div[i];
+    q[i] = v < 0 ? -r : r;
+  }
+}
+
+struct BitWriter {
+  uint8_t* out;
+  int64_t cap, pos = 0;
+  uint64_t acc = 0;
+  int32_t nacc = 0;
+  bool overflow = false;
+
+  void put_byte(uint8_t b) {
+    if (pos >= cap) {
+      overflow = true;
+      return;
+    }
+    out[pos++] = b;
+  }
+  void put_bits(uint32_t v, int32_t n) {
+    acc = (acc << n) | (v & ((1u << n) - 1));
+    nacc += n;
+    while (nacc >= 8) {
+      const uint8_t b = (uint8_t)(acc >> (nacc - 8));
+      put_byte(b);
+      if (b == 0xFF) put_byte(0);
+      nacc -= 8;
+    }
+  }
+  void flush() {
+    if (nacc > 0) put_bits(0x7F, 8 - nacc);  // pad with 1-bits
+  }
+};
+
+int32_t bit_length(int32_t a) {
+  int32_t n = 0;
+  while (a) {
+    ++n;
+    a >>= 1;
+  }
+  return n;
+}
+
+void encode_block(BitWriter& bw, const int32_t* q, int32_t& last_dc,
+                  const HuffTable& dc, const HuffTable& ac) {
+  int32_t diff = q[0] - last_dc;
+  last_dc = q[0];
+  int32_t nb = bit_length(diff < 0 ? -diff : diff);
+  bw.put_bits(dc.code[nb], dc.size[nb]);
+  if (nb) bw.put_bits((uint32_t)(diff < 0 ? diff - 1 : diff), nb);
+  int32_t run = 0;
+  for (int32_t k = 1; k < 64; ++k) {
+    const int32_t v = q[kZigzag[k]];
+    if (v == 0) {
+      ++run;
+      continue;
+    }
+    while (run > 15) {
+      bw.put_bits(ac.code[0xF0], ac.size[0xF0]);
+      run -= 16;
+    }
+    nb = bit_length(v < 0 ? -v : v);
+    const int32_t sym = (run << 4) | nb;
+    bw.put_bits(ac.code[sym], ac.size[sym]);
+    bw.put_bits((uint32_t)(v < 0 ? v - 1 : v), nb);
+    run = 0;
+  }
+  if (run > 0) bw.put_bits(ac.code[0], ac.size[0]);
+}
+
+}  // namespace
+
+// The JPEG of one (h, w, 3) uint8 RGB image at IJG quality 1..100 into
+// out[0, cap).  Returns its byte count, -1 on invalid arguments, or -2
+// when cap is too small.
+int64_t spalign_encode_jpeg(const uint8_t* rgb, int32_t h, int32_t w,
+                            int32_t quality, uint8_t* out, int64_t cap) {
+  if (!rgb || !out || h <= 0 || w <= 0 || h > 65535 || w > 65535 ||
+      quality < 1 || quality > 100 || cap < 0)
+    return -1;
+  const int32_t scale = quality < 50 ? 5000 / quality : 200 - 2 * quality;
+  uint8_t quant[2][64];
+  int32_t div[2][64];
+  for (int32_t t = 0; t < 2; ++t)
+    for (int32_t i = 0; i < 64; ++i) {
+      int32_t v = ((int32_t)kBaseQuant[t][i] * scale + 50) / 100;
+      v = v < 1 ? 1 : (v > 255 ? 255 : v);
+      quant[t][i] = (uint8_t)v;
+      div[t][i] = v << 3;
+    }
+  // color conversion (jccolor.c) and the padded planes: Y to whole MCUs,
+  // Cb and Cr at full resolution over an even row count and whole MCU
+  // columns, edges replicated
+  const int32_t mh = (h + 15) / 16, mw = (w + 15) / 16;
+  const int32_t hr = (h + 1) / 2;
+  const size_t yw = (size_t)mw * 16, cw = (size_t)mw * 8;
+  std::vector<uint8_t> yp((size_t)mh * 16 * yw);
+  std::vector<int32_t> cfull((size_t)2 * hr * 2 * yw);  // Cb, Cr interleaved
+  const int32_t kOff = (128 << 16) + 32767;
+  for (int32_t y = 0; y < 2 * hr; ++y) {
+    const uint8_t* row = rgb + (size_t)(y < h ? y : h - 1) * w * 3;
+    for (size_t x = 0; x < yw; ++x) {
+      const uint8_t* px = row + (size_t)(x < (size_t)w ? x : w - 1) * 3;
+      const int32_t r = px[0], g = px[1], b = px[2];
+      if (y < h)
+        yp[(size_t)y * yw + x] =
+            (uint8_t)((19595 * r + 38470 * g + 7471 * b + 32768) >> 16);
+      int32_t* c = &cfull[((size_t)y * yw + x) * 2];
+      c[0] = (-11059 * r - 21709 * g + 32768 * b + kOff) >> 16;
+      c[1] = (32768 * r - 27439 * g - 5329 * b + kOff) >> 16;
+    }
+  }
+  for (int32_t y = h; y < mh * 16; ++y)
+    std::memcpy(&yp[(size_t)y * yw], &yp[(size_t)(h - 1) * yw], yw);
+  // h2v2 downsample (jcsample.c); rows past the image repeat the last
+  std::vector<uint8_t> cplane[2];
+  for (int32_t c = 0; c < 2; ++c) cplane[c].resize((size_t)mh * 8 * cw);
+  for (int32_t y = 0; y < mh * 8; ++y) {
+    const int32_t sy = y < hr ? y : hr - 1;
+    const int32_t* r0 = &cfull[(size_t)(2 * sy) * yw * 2];
+    const int32_t* r1 = r0 + yw * 2;
+    for (size_t x = 0; x < cw; ++x) {
+      const int32_t bias = (x & 1) ? 2 : 1;
+      for (int32_t c = 0; c < 2; ++c)
+        cplane[c][(size_t)y * cw + x] = (uint8_t)(
+            (r0[4 * x + c] + r0[4 * x + 2 + c] + r1[4 * x + c] +
+             r1[4 * x + 2 + c] + bias) >> 2);
+    }
+  }
+  HuffTable dc[2], ac[2];
+  for (int32_t t = 0; t < 2; ++t) {
+    make_huff(kDcBits[t], (const uint8_t*)"\0\1\2\3\4\5\6\7\10\11\12\13",
+              &dc[t]);
+    make_huff(kAcBits[t], kAcVals[t], &ac[t]);
+  }
+  BitWriter bw{out, cap};
+  auto marker = [&](uint8_t m, int32_t len) {
+    bw.put_byte(0xFF);
+    bw.put_byte(m);
+    bw.put_byte((uint8_t)(len >> 8));
+    bw.put_byte((uint8_t)len);
+  };
+  bw.put_byte(0xFF);
+  bw.put_byte(0xD8);
+  marker(0xE0, 16);
+  for (uint8_t b : {'J', 'F', 'I', 'F', '\0', '\1', '\1', '\0', '\0', '\1',
+                    '\0', '\1', '\0', '\0'})
+    bw.put_byte((uint8_t)b);
+  for (int32_t t = 0; t < 2; ++t) {
+    marker(0xDB, 67);
+    bw.put_byte((uint8_t)t);
+    for (int32_t k = 0; k < 64; ++k) bw.put_byte(quant[t][kZigzag[k]]);
+  }
+  marker(0xC0, 17);
+  for (uint8_t b : {(uint8_t)8, (uint8_t)(h >> 8), (uint8_t)h,
+                    (uint8_t)(w >> 8), (uint8_t)w, (uint8_t)3, (uint8_t)1,
+                    (uint8_t)0x22, (uint8_t)0, (uint8_t)2, (uint8_t)0x11,
+                    (uint8_t)1, (uint8_t)3, (uint8_t)0x11, (uint8_t)1})
+    bw.put_byte(b);
+  for (int32_t t = 0; t < 2; ++t) {
+    marker(0xC4, 2 + 1 + 16 + 12);
+    bw.put_byte((uint8_t)t);
+    for (int32_t i = 0; i < 16; ++i) bw.put_byte(kDcBits[t][i]);
+    for (int32_t i = 0; i < 12; ++i) bw.put_byte((uint8_t)i);
+    marker(0xC4, 2 + 1 + 16 + 162);
+    bw.put_byte((uint8_t)(0x10 | t));
+    for (int32_t i = 0; i < 16; ++i) bw.put_byte(kAcBits[t][i]);
+    for (int32_t i = 0; i < 162; ++i) bw.put_byte(kAcVals[t][i]);
+  }
+  marker(0xDA, 12);
+  for (uint8_t b : {3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0})
+    bw.put_byte(b);
+  // the scan: MCUs of Y00 Y01 Y10 Y11 Cb Cr
+  const int32_t bw_blocks = (w + 7) / 8, bh_blocks = (h + 7) / 8;
+  int32_t last_dc[3] = {0, 0, 0};
+  int32_t qy[4][64], qc[64];
+  for (int32_t my = 0; my < mh; ++my) {
+    for (int32_t mx = 0; mx < mw; ++mx) {
+      for (int32_t i = 0; i < 4; ++i) {
+        const int32_t by = 2 * my + i / 2, bx = 2 * mx + i % 2;
+        if (by >= bh_blocks) {  // a row of dummy blocks
+          std::memset(qy[i], 0, sizeof(qy[i]));
+          qy[i][0] = qy[1][0];
+        } else if (bx >= bw_blocks) {  // a dummy block at the right
+          std::memset(qy[i], 0, sizeof(qy[i]));
+          qy[i][0] = qy[i - 1][0];
+        } else {
+          code_block(&yp[(size_t)by * 8 * yw + (size_t)bx * 8], yw, div[0],
+                     qy[i]);
+        }
+        encode_block(bw, qy[i], last_dc[0], dc[0], ac[0]);
+      }
+      for (int32_t c = 0; c < 2; ++c) {
+        code_block(&cplane[c][(size_t)my * 8 * cw + (size_t)mx * 8], cw,
+                   div[1], qc);
+        encode_block(bw, qc, last_dc[1 + c], dc[1], ac[1]);
+      }
+    }
+  }
+  bw.flush();
+  bw.put_byte(0xFF);
+  bw.put_byte(0xD9);
+  return bw.overflow ? -2 : bw.pos;
+}
+
 }  // extern "C"

@@ -51,6 +51,7 @@ LIBRARY = HostLibrary("host_ops", {
     "spalign_png_unfilter": (_I32, [_U8P, _I32, ctypes.c_int64, _I32, _U8P]),
     "spalign_resize_cubic_u8": (_I32, [_U8P, _I32, _I32, _I32, _I32, _I32,
                                        _I32, _U8P]),
+    "spalign_encode_jpeg": (_I64, [_U8P, _I32, _I32, _I32, _U8P, _I64]),
 })
 HOST_THREADS = 8
 
@@ -231,6 +232,46 @@ def resize_cubic_u8(images: np.ndarray, out_hw) -> np.ndarray:
                                        hi - lo, in_h, in_w, c, h, w,
                                        out[lo:hi].ctypes.data_as(_U8P)):
             raise ValueError("resize_cubic_u8: invalid arguments")
+
+    _split_batch(run, b)
+    return out if img.ndim == 4 else out[0]
+
+
+def _jpeg_capacity(h: int, w: int) -> int:
+    """Bytes that bound a baseline JPEG of (h, w): the headers, and for
+    each of the 6 blocks of an MCU at most 27 bits of DC and 63 x 26 of
+    AC, doubled for byte stuffing."""
+    return 1024 + -(-h // 16) * -(-w // 16) * 6 * 420
+
+
+def encode_jpeg_rgb(images: np.ndarray, quality: int):
+    """Baseline JPEG (JFIF, YCbCr 4:2:0, IJG's integer "islow" DCT, the
+    Annex K tables at IJG ``quality``) of an (H, W, 3) uint8 RGB image ->
+    bytes, or of a batch (B, H, W, 3) -> a list of bytes, one image a
+    thread (``csrc/host_ops.cpp`` ``spalign_encode_jpeg``)."""
+    img = np.asarray(images)
+    if img.dtype != np.uint8 or img.ndim not in (3, 4) or img.shape[-1] != 3:
+        raise ValueError(f"encode_jpeg_rgb takes uint8 (H, W, 3) or "
+                         f"(B, H, W, 3), got {img.dtype} {img.shape}")
+    if not 1 <= int(quality) <= 100:
+        raise ValueError(f"quality {quality} outside 1..100")
+    batch = np.ascontiguousarray(img if img.ndim == 4 else img[None])
+    b, h, w, _ = batch.shape
+    if h > 65535 or w > 65535:
+        raise ValueError(f"a JPEG holds at most 65535 x 65535, got {h} x {w}")
+    cap = _jpeg_capacity(h, w)
+    out = [None] * b
+    lib = LIBRARY.get()
+
+    def run(lo, hi):
+        for i in range(lo, hi):
+            buf = np.empty(cap, np.uint8)
+            n = lib.spalign_encode_jpeg(batch[i].ctypes.data_as(_U8P), h, w,
+                                        int(quality),
+                                        buf.ctypes.data_as(_U8P), cap)
+            if n < 0:
+                raise ValueError(f"encode_jpeg: error {n}")
+            out[i] = buf[:n].tobytes()
 
     _split_batch(run, b)
     return out if img.ndim == 4 else out[0]
@@ -448,3 +489,219 @@ def standardize_invert_u8_reference(imgs: np.ndarray, mean,
     return np.clip(np.rint(imgs * np.asarray(std, np.float32)
                            + np.asarray(mean, np.float32)),
                    0, 255).astype(np.uint8)
+
+
+_JPEG_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
+_JPEG_BASE_QUANT = (np.array([  # Annex K.1, natural order
+    16, 11, 10, 16, 24, 40, 51, 61, 12, 12, 14, 19, 26, 58, 60, 55,
+    14, 13, 16, 24, 40, 57, 69, 56, 14, 17, 22, 29, 51, 87, 80, 62,
+    18, 22, 37, 56, 68, 109, 103, 77, 24, 35, 55, 64, 81, 104, 113, 92,
+    49, 64, 78, 87, 103, 121, 120, 101, 72, 92, 95, 98, 112, 100, 103, 99]),
+    np.array([17, 18, 24, 47, 99, 99, 99, 99, 18, 21, 26, 66, 99, 99, 99, 99,
+              24, 26, 56, 99, 99, 99, 99, 99, 47, 66, 99, 99, 99, 99, 99, 99]
+             + [99] * 32))
+_JPEG_DC_BITS = ([0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0],
+                 [0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0])
+_JPEG_AC_BITS = ([0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d],
+                 [0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77])
+_JPEG_AC_VALS = (bytes.fromhex(
+    "01020300041105122131410613516107227114328191a1082342b1c11552d1f0"
+    "2433627282090a161718191a25262728292a3435363738393a434445464748494a"
+    "535455565758595a636465666768696a737475767778797a838485868788898a"
+    "92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3c4c5c6"
+    "c7c8c9cad2d3d4d5d6d7d8d9dae1e2e3e4e5e6e7e8e9eaf1f2f3f4f5f6f7f8f9fa"),
+    bytes.fromhex(
+    "000102031104052131061241510761711322328108144291a1b1c109233352f0"
+    "156272d10a162434e125f11718191a262728292a35363738393a434445464748"
+    "494a535455565758595a636465666768696a737475767778797a828384858687"
+    "88898a92939495969798999aa2a3a4a5a6a7a8a9aab2b3b4b5b6b7b8b9bac2c3"
+    "c4c5c6c7c8c9cad2d3d4d5d6d7d8d9dae2e3e4e5e6e7e8e9eaf2f3f4f5f6f7f8"
+    "f9fa"))
+
+
+def _jpeg_quant_tables(quality: int):
+    """jcparam.c: the Annex K tables scaled by quality, baseline-clamped."""
+    scale = 5000 // quality if quality < 50 else 200 - 2 * quality
+    return [np.clip((t * scale + 50) // 100, 1, 255) for t in _JPEG_BASE_QUANT]
+
+
+def _jpeg_huff_codes(bits, vals):
+    """Annex C: (code, length) indexed by symbol."""
+    code_of = np.zeros(256, np.int64)
+    len_of = np.zeros(256, np.int64)
+    code, k = 0, 0
+    for length in range(1, 17):
+        for _ in range(bits[length - 1]):
+            code_of[vals[k]], len_of[vals[k]] = code, length
+            code += 1
+            k += 1
+        code <<= 1
+    return code_of, len_of
+
+
+def _jpeg_fdct_islow(blocks):
+    """jfdctint.c over (..., 8, 8) int64 level-shifted samples: rows,
+    then columns; coefficients scaled by 8."""
+    def descale(x, n):
+        return (x + (1 << (n - 1))) >> n
+
+    def one_pass(d, first):
+        s = [d[..., i] for i in range(8)]
+        t0, t7 = s[0] + s[7], s[0] - s[7]
+        t1, t6 = s[1] + s[6], s[1] - s[6]
+        t2, t5 = s[2] + s[5], s[2] - s[5]
+        t3, t4 = s[3] + s[4], s[3] - s[4]
+        t10, t13 = t0 + t3, t0 - t3
+        t11, t12 = t1 + t2, t1 - t2
+        sh = 13 - 2 if first else 13 + 2
+        out = [None] * 8
+        if first:
+            out[0], out[4] = (t10 + t11) << 2, (t10 - t11) << 2
+        else:
+            out[0], out[4] = descale(t10 + t11, 2), descale(t10 - t11, 2)
+        z1 = (t12 + t13) * 4433
+        out[2] = descale(z1 + t13 * 6270, sh)
+        out[6] = descale(z1 + t12 * -15137, sh)
+        z1, z2, z3, z4 = t4 + t7, t5 + t6, t4 + t6, t5 + t7
+        z5 = (z3 + z4) * 9633
+        t4, t5, t6, t7 = t4 * 2446, t5 * 16819, t6 * 25172, t7 * 12299
+        z1, z2 = z1 * -7373, z2 * -20995
+        z3, z4 = z3 * -16069 + z5, z4 * -3196 + z5
+        out[7] = descale(t4 + z1 + z3, sh)
+        out[5] = descale(t5 + z2 + z4, sh)
+        out[3] = descale(t6 + z2 + z3, sh)
+        out[1] = descale(t7 + z1 + z4, sh)
+        return np.stack(out, -1)
+
+    rows = one_pass(blocks, True)
+    return np.swapaxes(one_pass(np.swapaxes(rows, -1, -2), False), -1, -2)
+
+
+def _jpeg_coded_blocks(plane, quant):
+    """(H, W) plane with H, W multiples of 8 -> (H/8, W/8, 64) quantized
+    coefficients (jcdctmgr.c's rounding), natural order."""
+    h, w = plane.shape
+    blocks = plane.reshape(h // 8, 8, w // 8, 8).swapaxes(1, 2) - 128
+    coef = _jpeg_fdct_islow(blocks).reshape(h // 8, w // 8, 64)
+    div = quant.astype(np.int64) << 3
+    q = (np.abs(coef) + (div >> 1)) // div
+    return np.where(coef < 0, -q, q)
+
+
+def _bit_length(a):
+    a = np.abs(a)
+    return sum((a >= (1 << i)).astype(np.int64) for i in range(16))
+
+
+def encode_jpeg_rgb_reference(img: np.ndarray, quality: int) -> bytes:
+    """Plain numpy version of :func:`encode_jpeg_rgb` for one image: the
+    same integer arithmetic and edge rules, the entropy coder as sorted
+    (code, length) events packed to bits."""
+    img = np.asarray(img, np.uint8)
+    h, w, _ = img.shape
+    rgb = img.astype(np.int64)
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    off = (128 << 16) + 32767
+    y = (19595 * r + 38470 * g + 7471 * b + 32768) >> 16
+    cb = (-11059 * r - 21709 * g + 32768 * b + off) >> 16
+    cr = (32768 * r - 27439 * g - 5329 * b + off) >> 16
+    mh, mw = -(-h // 16), -(-w // 16)
+    xi = np.minimum(np.arange(mw * 16), w - 1)
+    yp = y[np.minimum(np.arange(mh * 16), h - 1)][:, xi]
+    hr = -(-h // 2)
+    ri = np.minimum(np.arange(2 * hr), h - 1)
+    bias = np.tile([1, 2], mw * 4)
+    quant = _jpeg_quant_tables(int(quality))
+    qc = []
+    for c in (cb, cr):
+        cx = c[ri][:, xi]
+        d = (cx[0::2, 0::2] + cx[0::2, 1::2] + cx[1::2, 0::2]
+             + cx[1::2, 1::2] + bias) >> 2
+        qc.append(_jpeg_coded_blocks(
+            d[np.minimum(np.arange(mh * 8), hr - 1)], quant[1]))
+    qy = _jpeg_coded_blocks(yp, quant[0])  # (2 mh, 2 mw, 64)
+    bw, bh = -(-w // 8), -(-h // 8)
+    if bw % 2:  # dummy blocks at the right: the DC of the block before
+        qy[:, bw] = 0
+        qy[:, bw, 0] = qy[:, bw - 1, 0]
+    if bh % 2:  # a dummy row: the DC of the MCU's top-right block
+        qy[bh] = 0
+        qy[bh, :, 0] = np.repeat(qy[bh - 1, 1::2, 0], 2)
+    ymcu = qy.reshape(mh, 2, mw, 2, 64).transpose(0, 2, 1, 3, 4).reshape(
+        mh, mw, 4, 64)
+    zz = np.concatenate([ymcu, qc[0][:, :, None], qc[1][:, :, None]],
+                        2).reshape(-1, 64)[:, _JPEG_ZIGZAG]
+    comp = np.tile([0, 0, 0, 0, 1, 2], mh * mw)
+    table = np.minimum(comp, 1)
+    n = len(zz)
+    diff = np.empty(n, np.int64)
+    for c in range(3):
+        v = zz[comp == c, 0]
+        diff[comp == c] = v - np.concatenate([[0], v[:-1]])
+    dc = [_jpeg_huff_codes(_JPEG_DC_BITS[t], range(12)) for t in range(2)]
+    ac = [_jpeg_huff_codes(_JPEG_AC_BITS[t], _JPEG_AC_VALS[t])
+          for t in range(2)]
+
+    def lookup(codes, tab, sym):
+        return (np.where(tab == 0, codes[0][0][sym], codes[1][0][sym]),
+                np.where(tab == 0, codes[0][1][sym], codes[1][1][sym]))
+
+    def extra(v, nb):
+        return np.where(v < 0, v - 1, v) & ((1 << nb) - 1)
+
+    # events keyed by (block, position, order): DC, ZRLs, AC symbol, EOB
+    nb = _bit_length(diff)
+    code, length = lookup(dc, table, nb)
+    keys, vals, lens = [np.arange(n) * 512], [(code << nb) | extra(diff, nb)], \
+        [length + nb]
+    bi, k = np.nonzero(zz[:, 1:])
+    k = k + 1
+    v = zz[bi, k]
+    first = np.concatenate([[True], bi[1:] != bi[:-1]])
+    run = k - np.where(first, 0, np.concatenate([[0], k[:-1]])) - 1
+    nb = _bit_length(v)
+    code, length = lookup(ac, table[bi], ((run & 15) << 4) | nb)
+    keys.append(bi * 512 + k * 8 + 4)
+    vals.append((code << nb) | extra(v, nb))
+    lens.append(length + nb)
+    for z in range(1, 4):  # a ZRL for each 16 zeros of a run
+        sel = run >= 16 * z
+        code, length = lookup(ac, table[bi[sel]], 0xF0)
+        keys.append(bi[sel] * 512 + k[sel] * 8 + z - 1)
+        vals.append(code)
+        lens.append(length)
+    last = np.zeros(n, np.int64)
+    np.maximum.at(last, bi, k)
+    eob = np.nonzero(last < 63)[0]
+    code, length = lookup(ac, table[eob], 0)
+    keys.append(eob * 512 + 511)
+    vals.append(code)
+    lens.append(length)
+    order = np.argsort(np.concatenate(keys), kind="stable")
+    vals = np.concatenate(vals)[order]
+    lens = np.concatenate(lens)[order]
+    pos = np.arange(lens.sum()) - np.repeat(np.cumsum(lens) - lens, lens)
+    bits = (np.repeat(vals, lens) >> (np.repeat(lens, lens) - 1 - pos)) & 1
+    bits = np.concatenate([bits, np.ones((-len(bits)) % 8, np.int64)])
+    data = np.packbits(bits.astype(np.uint8))
+    data = np.insert(data, np.nonzero(data == 0xFF)[0] + 1, 0)
+    out = bytearray(b"\xff\xd8\xff\xe0\x00\x10JFIF\x00\x01\x01\x00\x00\x01"
+                    b"\x00\x01\x00\x00")
+    for t, q in enumerate(quant):
+        out += b"\xff\xdb\x00\x43" + bytes([t]) + bytes(
+            q[_JPEG_ZIGZAG].astype(np.uint8))
+    out += (b"\xff\xc0\x00\x11\x08" + h.to_bytes(2, "big")
+            + w.to_bytes(2, "big") + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3,
+                                             0x11, 1]))
+    for t in range(2):
+        for tc, bits_, vals_ in ((t, _JPEG_DC_BITS[t], range(12)),
+                                 (0x10 | t, _JPEG_AC_BITS[t],
+                                  _JPEG_AC_VALS[t])):
+            seg = bytes([tc]) + bytes(bits_) + bytes(vals_)
+            out += b"\xff\xc4" + (len(seg) + 2).to_bytes(2, "big") + seg
+    out += b"\xff\xda\x00\x0c\x03\x01\x00\x02\x11\x03\x11\x00\x3f\x00"
+    return bytes(out) + data.tobytes() + b"\xff\xd9"

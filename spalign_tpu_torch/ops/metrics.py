@@ -8,6 +8,7 @@ pixels with label < 0 ('void') are ignored.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -37,3 +38,27 @@ def precision_recall_from_confusion(conf: torch.Tensor):
     conf = conf.to(torch.float64)
     tp, fp, fn = conf[1, 1], conf[0, 1], conf[1, 0]
     return tp / (tp + fp), tp / (tp + fn)
+
+
+def segmentation_scores(pred, gt, n_class: int = 2, device="cpu") -> dict:
+    """Per-image record with the reference's result.json fields
+    (road_iou, non_road_iou, precision, recall, TP, FP, FN) of two masks
+    (numpy or tensors), the confusion counted on ``device``; the IoUs in
+    float32, as the JAX package computes them."""
+    conf = confusion_matrix(torch.as_tensor(pred, device=device),
+                            torch.as_tensor(gt, device=device),
+                            n_class).cpu().numpy()
+    tp, fp, fn = int(conf[1, 1]), int(conf[0, 1]), int(conf[1, 0])
+    c32 = conf.astype(np.float32)
+    diag = np.diagonal(c32)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        iou = diag / (c32.sum(0) + c32.sum(1) - diag)
+    return {
+        "road_iou": float(iou[1]),
+        "non_road_iou": float(iou[0]),
+        "precision": float(tp / (tp + fp)) if tp + fp > 0 else None,
+        "recall": float(tp / (tp + fn)) if tp + fn > 0 else None,
+        "TP": tp,
+        "FP": fp,
+        "FN": fn,
+    }

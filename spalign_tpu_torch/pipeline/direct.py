@@ -265,10 +265,11 @@ class OverlapsLabelGenerator(DirectLabelGenerator):
 
 def make_label_generator(cfg: LabelGenConfig, state_dict=None,
                          model_name: str = "drn_c_26",
-                         seed: Optional[int] = None, device="cuda"):
+                         seed: Optional[int] = None, device="cuda",
+                         dynamic_k: Optional[int] = None):
     """The generator of cfg.mode: spalign, direct or overlaps."""
     cls = {"spalign": SpalignLabelGenerator,
            "direct": DirectLabelGenerator,
            "overlaps": OverlapsLabelGenerator}[cfg.mode]
     return cls(cfg, state_dict=state_dict, model_name=model_name, seed=seed,
-               device=device)
+               device=device, dynamic_k=dynamic_k)

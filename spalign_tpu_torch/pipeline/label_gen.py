@@ -32,13 +32,21 @@ replays the reference's own streams instead: the anchor shuffle, align
 and float64 prior on the host (``ops/parity.py``), the seed-1111 numpy
 init, then the Lloyd loop and painting on the device.
 
-Not ported yet: diagnostic panels (``save_images``) and the dynamic-k
-sweep.
+A sweep reuses one generator: ``reconfigure`` adopts a new config
+(``set_n_clusters`` a new k) and keeps the weights and the seed streams,
+so the sweep's rows consume one host seed stream in order, as the JAX
+package's do.  k is read from the config at each dispatch: nothing is
+compiled or shaped by it, and ``dynamic_k`` is only the bound that k
+may not pass (the JAX package compiles its k-means for up to that many
+clusters).
+
+Not ported yet: diagnostic panels (``save_images``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import os
 import random
 from collections import deque
@@ -298,6 +306,8 @@ class LabelGeneratorBase:
         parity mode's replicas of the reference's numpy and python
         streams (default cfg.kmeans.seed).
       device: 'cuda' (default; raises without CUDA) or 'cpu'.
+      dynamic_k: the most clusters ``reconfigure`` / ``set_n_clusters``
+        may ask for (None: no bound), as the JAX package's argument.
     """
 
     mode = None  # the cfg.mode the subclass runs
@@ -306,8 +316,10 @@ class LabelGeneratorBase:
 
     def __init__(self, cfg: LabelGenConfig, state_dict=None,
                  model_name: str = "drn_c_26", seed: Optional[int] = None,
-                 device="cuda"):
+                 device="cuda", dynamic_k: Optional[int] = None):
         self.device = resolve_device(device)
+        self.dynamic_k = dynamic_k
+        self._check_k(cfg)
         self._validate(cfg)
         self.cfg = cfg
         if self.device.type == "cuda":
@@ -315,18 +327,8 @@ class LabelGeneratorBase:
             # in full float32 (cuDNN would otherwise use TF32)
             torch.backends.cudnn.allow_tf32 = False
             torch.backends.cuda.matmul.allow_tf32 = False
-        model = DRN_FACTORIES[model_name](device="cpu")
-        if state_dict is not None:
-            model.load_state_dict(state_dict, strict=True)
-        # the parity mode pins float32 whatever model_dtype says: its
-        # contract is the reference's float32/float64 host arithmetic
-        dtype = (torch.float32 if cfg.kmeans.init == "reference" else
-                 {"float32": torch.float32,
-                  "bfloat16": torch.bfloat16}[cfg.model_dtype])
-        model = model.to(device=self.device, dtype=dtype)
-        if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        self.model = model.eval()
+        self._model_name, self._state_dict = model_name, state_dict
+        self.model = self._build_model(self._model_dtype(cfg))
         seed = cfg.kmeans.seed if seed is None else seed
         self._seed_rng = np.random.RandomState(seed)
         # the parity mode's replicas of the reference's process-global
@@ -335,12 +337,70 @@ class LabelGeneratorBase:
         # per-superpixel anchor shuffle (:232)
         self._parity_rng = np.random.RandomState(seed)
         self._parity_pyrng = random.Random(seed)
-        p = cfg.prior
-        self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
-                              p.x_rel_sigma)
+        self._configure()
         self._upload_stream = (torch.cuda.Stream(device=self.device)
                                if self.device.type == "cuda" else None)
         self._want_cluster_np = False  # set by process_dataset when saving
+
+    @staticmethod
+    def _model_dtype(cfg: LabelGenConfig) -> torch.dtype:
+        """The DRN's compute dtype: the parity mode pins float32 whatever
+        model_dtype says (its contract is the reference's float32/float64
+        host arithmetic)."""
+        if cfg.kmeans.init == "reference":
+            return torch.float32
+        return {"float32": torch.float32,
+                "bfloat16": torch.bfloat16}[cfg.model_dtype]
+
+    def _build_model(self, dtype: torch.dtype):
+        """The DRN with the generator's weights (the given state_dict, or
+        the factory's seeded random weights) in ``dtype`` on the device,
+        channels_last on the card."""
+        model = DRN_FACTORIES[self._model_name](device="cpu")
+        if self._state_dict is not None:
+            model.load_state_dict(self._state_dict, strict=True)
+        model = model.to(device=self.device, dtype=dtype)
+        if self.device.type == "cuda":
+            model = model.to(memory_format=torch.channels_last)
+        return model.eval()
+
+    def _configure(self):
+        """What the generator derives from self.cfg (the subclasses add
+        their superpixel geometry)."""
+        p = self.cfg.prior
+        self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
+                              p.x_rel_sigma)
+
+    def _check_k(self, cfg: LabelGenConfig):
+        if self.dynamic_k is not None and cfg.kmeans.n_clusters > \
+                self.dynamic_k:
+            raise ValueError(f"n_clusters={cfg.kmeans.n_clusters} > "
+                             f"dynamic_k bound {self.dynamic_k}")
+
+    # --- sweep support: one generator, a config a row ---
+
+    def reconfigure(self, cfg: LabelGenConfig):
+        """Adopt a new config: validated, the DRN rebuilt (same weights)
+        when the compute dtype changes, everything derived from the
+        config recomputed.  The seed streams go on where they are."""
+        self._check_k(cfg)
+        self._validate(cfg)
+        dtype = self._model_dtype(cfg)
+        if dtype != self._model_dtype(self.cfg):
+            self.model = self._build_model(dtype)
+        self.cfg = cfg
+        self._configure()
+
+    def set_n_clusters(self, k: int):
+        """Change the k-means cluster count (within ``dynamic_k``)."""
+        self.reconfigure(dataclasses.replace(
+            self.cfg,
+            kmeans=dataclasses.replace(self.cfg.kmeans, n_clusters=k)))
+
+    def n_program_traces(self) -> int:
+        """The JAX package's count of traced programs; torch traces
+        nothing, so -1, its value for "unavailable"."""
+        return -1
 
     def _validate(self, cfg: LabelGenConfig):
         """Raise on a configuration this generator does not run, and on
@@ -644,11 +704,12 @@ class SpalignLabelGenerator(LabelGeneratorBase):
 
     mode = "spalign"
 
-    def __init__(self, cfg: LabelGenConfig, state_dict=None,
-                 model_name: str = "drn_c_26", seed: Optional[int] = None,
-                 device="cuda"):
-        super().__init__(cfg, state_dict=state_dict, model_name=model_name,
-                         seed=seed, device=device)
+    def _configure(self):
+        """The superpixel geometry: with the device SLIC frontend, the
+        maps' shape at 1/d and K = its grid size; with a host engine,
+        K = max_superpixels."""
+        super()._configure()
+        cfg = self.cfg
         if fused_superpixels(cfg):
             d = cfg.superpixel.slic_device_downscale
             self._sp_hw = (cfg.resize_shape[0] // d,

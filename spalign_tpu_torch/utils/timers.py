@@ -34,6 +34,11 @@ class StageTimer:
             self.times[f"time_{name}"] = (
                 self.times.get(f"time_{name}", 0.0) + time.time() - st)
 
+    def add(self, name: str, seconds: float):
+        """Count ``seconds`` timed elsewhere (another thread) to a stage."""
+        self.times[f"time_{name}"] = (
+            self.times.get(f"time_{name}", 0.0) + seconds)
+
     def finish(self) -> Dict[str, float]:
         self.times["elapsed_time"] = time.time() - self._t0
         return dict(self.times)

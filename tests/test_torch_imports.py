@@ -1,6 +1,6 @@
 """Rules of the port: spalign_tpu_torch/ and chip_smoke.py import no JAX,
-flax, cv2, PIL or spalign_tpu, and the entry points default to CUDA and
-raise without it instead of falling back to the CPU."""
+flax, cv2, PIL, matplotlib or spalign_tpu, and the entry points default
+to CUDA and raise without it instead of falling back to the CPU."""
 
 import ast
 import inspect
@@ -11,9 +11,13 @@ import pytest
 import torch
 
 from spalign_tpu_torch import config
+from spalign_tpu_torch.cli import bottom_half as cli_bottom_half
+from spalign_tpu_torch.cli import convert_model as cli_convert_model
+from spalign_tpu_torch.cli import demo_video as cli_demo_video
 from spalign_tpu_torch.cli import label_gen as cli_label_gen
 from spalign_tpu_torch.cli import relabel as cli_relabel
 from spalign_tpu_torch.cli import rounds as cli_rounds
+from spalign_tpu_torch.cli import sweep as cli_sweep
 from spalign_tpu_torch.cli import train as cli_train
 from spalign_tpu_torch.kernels.slic import slic
 from spalign_tpu_torch.models.drn import DRN_FACTORIES
@@ -28,7 +32,7 @@ from spalign_tpu_torch.train.evaluator import Evaluator
 from spalign_tpu_torch.train.trainer import Trainer, build_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL",
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib",
              "spalign_tpu")
 PORT_FILES = sorted((ROOT / "spalign_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
@@ -80,11 +84,21 @@ def test_the_scan_sees_the_whole_package():
             "spalign_tpu_torch/selftrain/rounds.py",
             "spalign_tpu_torch/cli/relabel.py",
             "spalign_tpu_torch/cli/rounds.py",
+            "spalign_tpu_torch/cli/sweep.py",
+            "spalign_tpu_torch/cli/make_zips.py",
+            "spalign_tpu_torch/cli/bottom_half.py",
+            "spalign_tpu_torch/cli/mean_result.py",
+            "spalign_tpu_torch/cli/make_table.py",
+            "spalign_tpu_torch/cli/convert_model.py",
+            "spalign_tpu_torch/cli/demo_video.py",
+            "spalign_tpu_torch/eval/tables.py",
+            "spalign_tpu_torch/utils/video.py",
             "chip_smoke.py"} <= names
 
 
 _RELABEL_ARGS = ["--param_dir", "p", "--img_zip_fn", "i.zip",
                  "--label_zip_fn", "l.zip", "--out_dir", "o"]
+_DEMO_ARGS = ["--param_dir", "p", "--frames_dir", "f", "--out_dir", "o"]
 
 
 def _default(fn, name="device"):
@@ -101,6 +115,7 @@ def test_entry_points_default_to_cuda():
     assert cli_train.get_args([]).device == "cuda"
     assert cli_rounds.get_args([]).device == "cuda"
     assert cli_relabel.get_args(_RELABEL_ARGS).device == "cuda"
+    assert cli_demo_video.get_args(_DEMO_ARGS).device == "cuda"
     assert _default(relabel_dataset) == "cuda"
     assert _default(RoundsDriver.__init__) == "cuda"
     assert _default(slic) == "cuda"
@@ -148,3 +163,15 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         cli_relabel.main(_RELABEL_ARGS)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_rounds.main(["--result_base_dir", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_sweep.main(["--grid", "fig7", "--synthetic", "1",
+                        "--synthetic_shape", "16", "16",
+                        "--sweep_out", str(tmp_path / "s.csv")])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_demo_video.main(_DEMO_ARGS)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_bottom_half.main(["--synthetic", "1"])
+    pth = str(tmp_path / "drn.pth")
+    torch.save(DRN_FACTORIES["drn_c_26"](device="cpu").state_dict(), pth)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli_convert_model.main([pth, str(tmp_path / "out.pth"), "--check"])
