@@ -1,7 +1,8 @@
 """Drive the PyTorch/CUDA port on one NVIDIA GPU and check it: the label
 path (stage 1), then SegNetBasic self-training on its labels (stage 2):
 training, relabeling and rounds; then the remaining tools of the README
-workflow and the ablation sweeps.
+workflow and the ablation sweeps; then the diagnostics and the paths over
+a process group.
 
     python3 chip_smoke.py
 
@@ -132,6 +133,28 @@ Run from the root of the repository on a machine with one CUDA GPU and
                counted exactly, the JPEG encoder's ms a 2 MP frame (equal
                to its numpy reference) and the first 2 masks against a CPU
                re-run (>= 0.999 of the pixels)
+  diagnostics  cli.label_gen with --save_images and --profile_dir over one
+               device-SLIC unit of real_files' tree (30 frames): a panel
+               per scored image at the panel's size, the torch.profiler
+               trace's top 10 device kernels by total time (the Lloyd
+               kernel must be among them); one 2 MP panel timed alone;
+               cli.relabel with --save_panels on the 8 val frames (a
+               panel each; pool and scatter must launch); score_full_res
+               on a unit's masks (150 at 224^2) against 1024x2048
+               labelIds, equal to the host scorer, its ms with the
+               labelIds upload beside the host scorer's seconds;
+               exact-permutation anchors (70000 segments) on the card
+               equal to the CPU with the same permutation;
+               enforce_connectivity_device on 4 SLIC maps of 1024x2048
+               frames and a unit's 224^2 maps, equal to its CPU run
+  several_ranks  in a one-rank NCCL group (env://, a free port), each
+               against the same run without a group: the main path's
+               spalign unit (2 timed units; masks bit-equal, images/s of
+               both), a relabel of the 8 val frames (zip members
+               byte-equal), one round of 2 steps relabelling 8 frames
+               (snapshot bit-equal, zip members byte-equal); then
+               dryrun_multichip(1), a spawned NCCL rank against this
+               process (bit-equal)
   sweep        cli.sweep in-process on main_path's frames, one unit of 150
                a value: fig 7 (k = 2..8) on the device-SLIC unit (the
                Lloyd kernel must launch) and fig 9's felzenszwalb scale at
@@ -1623,6 +1646,7 @@ def real_files_phase():
     emit(out)
     paths["labels_dir"] = dir_out
     paths["train_dir"] = os.path.join(root, "train")
+    paths["root"] = root
     check(round_trip, "decode(encode(frame)) == frame")
     check(resize_equal, "resize equals its plain version")
     check(golden == GOLDEN_RESIZE_SHA256, "golden resize hash")
@@ -2165,7 +2189,7 @@ def data_parallel_phase():
 
     from spalign_tpu_torch.config import TrainConfig
     from spalign_tpu_torch.kernels import pooling as pk
-    from spalign_tpu_torch.pipeline.label_gen import nn_resize_np
+    from spalign_tpu_torch.ops.resize import nn_resize_np
     from spalign_tpu_torch.train.trainer import Trainer
 
     imgs, gts = val_batch()
@@ -2229,6 +2253,377 @@ def data_parallel_phase():
     check(launches == {"pool2x2": 4 * DP_STEPS, "scatter2x2": 8 * DP_STEPS,
                        "gather2x2": 4 * DP_STEPS},
           f"4, 8 and 4 pooling launches a step, got {launches}")
+    return out
+
+
+def trace_kernels(trace_dir):
+    """Device kernels of the Chrome trace in ``trace_dir`` (the one file
+    ``utils/timers.profiler_trace`` wrote): total ms by name, sorted,
+    and the span of the trace's events in ms."""
+    import glob
+
+    (path,) = glob.glob(os.path.join(trace_dir, "trace_*.json"))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    by_name, calls = {}, {}
+    t_lo, t_hi = float("inf"), 0.0
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        t_lo = min(t_lo, e["ts"])
+        t_hi = max(t_hi, e["ts"] + e.get("dur", 0))
+        if e.get("cat") == "kernel":
+            by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"] / 1e3
+            calls[e["name"]] = calls.get(e["name"], 0) + 1
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
+    return ([{"name": n[:100], "calls": calls[n], "device_ms": ms}
+             for n, ms in ranked], (t_hi - t_lo) / 1e3,
+            os.path.getsize(path))
+
+
+def diagnostics_phase(paths, frames, labels, cfg):
+    """The diagnostics: the label CLI with --save_images and
+    --profile_dir over one device-SLIC unit of real_files' tree (a panel
+    per scored image; the trace's top kernels, which must name the Lloyd
+    kernel), the relabel CLI with --save_panels on the 8 val frames, the
+    device scorer against the host scorer on a unit's masks at
+    1024x2048, exact-permutation anchors on the card against the CPU,
+    and enforce_connectivity_device on overlaps-size SLIC maps and a
+    unit's 224^2 maps against its CPU run."""
+    import torch
+
+    from spalign_tpu_torch.cli import label_gen as label_cli
+    from spalign_tpu_torch.cli import relabel as relabel_cli
+    from spalign_tpu_torch.data.labels import create_label_mask
+    from spalign_tpu_torch.data.png import decode_png
+    from spalign_tpu_torch.kernels.experimental.ccl import (
+        enforce_connectivity_device)
+    from spalign_tpu_torch.kernels.slic import slic
+    from spalign_tpu_torch.ops.segments import sample_segment_anchors
+    from spalign_tpu_torch.pipeline.label_gen import (
+        SpalignLabelGenerator, host_confusion, score_full_res)
+    from spalign_tpu_torch.pipeline.superpixels import batched_slic_device
+    from spalign_tpu_torch.utils import viz
+
+    dev = torch.device("cuda")
+    root = tempfile.mkdtemp(prefix="chip_smoke_diag_")
+    sp = cfg.superpixel
+    panel_hw = viz.cell_shape(FULL_HW)
+
+    # the label CLI over one device-SLIC unit with panels and a trace
+    out_dir, prof_dir = (os.path.join(root, d) for d in ("labels", "prof"))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    records = label_cli.main([
+        "--cityscapes_dir", paths["root"], "--split", "train",
+        "--end_index", str(N_SCENES), "--superpixel_method", "slic",
+        "--slic_no_connectivity", "--upload_format", "yuv420",
+        "--save_images", "--profile_dir", prof_dir, "--out_dir", out_dir])
+    torch.cuda.synchronize()
+    t_cli = time.time() - t0
+    cli_launches = read_counts()
+    kernels, span_ms, trace_bytes = trace_kernels(prof_dir)
+    busy_ms = sum(k["device_ms"] for k in kernels)
+    lloyd = [k for k in kernels[:10] if "slic_lloyd" in k["name"]]
+    panel_shape = (2 * (viz.TITLE_BAND + panel_hw[0]) + 3 * viz.MARGIN,
+                   2 * panel_hw[1] + 3 * viz.MARGIN, 3)
+    panels_ok = []
+    for r in records:
+        with open(os.path.join(out_dir, os.path.basename(r["img_fn"])),
+                  "rb") as f:
+            panels_ok.append(decode_png(f.read()).shape == panel_shape)
+    # one 2 MP panel, timed alone
+    full = decode_png(open(paths["images"][0], "rb").read())
+    mask = np.load(os.path.join(out_dir, os.path.splitext(
+        os.path.basename(records[0]["img_fn"]))[0] + ".npy"))
+    cluster = np.load(os.path.join(out_dir, os.path.splitext(
+        os.path.basename(records[0]["img_fn"]))[0] + "_all_cluster.npy"))
+    t0 = time.time()
+    viz.save_diagnostic_panel(root, "one.png", full, mask, cluster,
+                              create_label_mask(labels[0]))
+    panel_seconds = time.time() - t0
+
+    # the relabel CLI with panels on the 8 val frames
+    relabel_out = os.path.join(root, "relabel")
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    rel = relabel_cli.main([
+        "--param_dir", paths["train_dir"], "--img_zip_fn",
+        paths["val_img_zip"], "--label_zip_fn", paths["val_label_zip"],
+        "--out_dir", relabel_out, "--soft_label", "--save_panels"])
+    torch.cuda.synchronize()
+    t_relabel = time.time() - t0
+    relabel_launches = read_counts()
+    pred_shape = (viz.TITLE_BAND + panel_hw[0] + 2 * viz.MARGIN,
+                  3 * panel_hw[1] + 4 * viz.MARGIN, 3)
+    pred_panels_ok = []
+    for r in rel:
+        with open(os.path.join(relabel_out, os.path.basename(r["img_fn"])),
+                  "rb") as f:
+            pred_panels_ok.append(decode_png(f.read()).shape == pred_shape)
+
+    # the device scorer against the host scorer, a unit at 1024x2048
+    unit_cfg = dataclasses.replace(cfg, save_masks=False)
+    gen = SpalignLabelGenerator(unit_cfg)
+    idx = np.arange(UNIT) % len(frames)
+    road, _, _, _ = gen.run_batch(frames[idx])
+    road_np = road.cpu().numpy()
+    label_ids = np.ascontiguousarray(np.stack([
+        labels[i % len(labels)] for i in range(UNIT)]))
+    full_ids = np.ascontiguousarray(
+        np.repeat(np.repeat(label_ids, 2, axis=1), 2, axis=2))  # 1024x2048
+    del gen
+    torch.cuda.synchronize()
+    t0 = time.time()
+    conf_dev = score_full_res(road, torch.from_numpy(full_ids).to(dev),
+                              FULL_HW).cpu().numpy()
+    t_dev_first = time.time() - t0
+    dev_ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        conf_dev = score_full_res(road, torch.from_numpy(full_ids).to(dev),
+                                  FULL_HW).cpu().numpy()
+        dev_ms.append((time.time() - t0) * 1e3)
+    t0 = time.time()
+    conf_host = np.stack([host_confusion(r, l)
+                          for r, l in zip(road_np, full_ids)])
+    t_host = time.time() - t0
+    del full_ids
+
+    # exact-permutation anchors (S = 70000 > 65536) on the card and CPU
+    rng = np.random.RandomState(3)
+    sp_map = (np.arange(100)[:, None] // 5 * 24
+              + np.arange(120)[None] // 5).astype(np.int32)  # 480 segments
+    perm = torch.from_numpy(rng.permutation(sp_map.size))
+    got = sample_segment_anchors(torch.from_numpy(sp_map).to(dev), 10,
+                                 70000, random_bits=perm.to(dev))
+    want = sample_segment_anchors(torch.from_numpy(sp_map), 10, 70000,
+                                  random_bits=perm)
+    anchors_equal = all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    own = sample_segment_anchors(torch.from_numpy(sp_map).to(dev), 10,
+                                 70000, generator=torch.Generator(
+                                     device=dev).manual_seed(0))
+    own_ok = bool(own[1].any(1).sum() == 480)
+
+    # enforce_connectivity_device: 4 overlaps-size SLIC maps, a 224^2 unit
+    full4 = np.stack([decode_png(open(p, "rb").read())
+                      for p in paths["images"][:4]])
+    maps_full = batched_slic_device(sp.n_slic_segments, sp.slic_compactness,
+                                    sp.slic_iters)(
+        torch.from_numpy(full4).to(dev))
+    maps_unit = slic(torch.from_numpy(frames[idx]).to(dev),
+                     n_segments=sp.n_slic_segments,
+                     compactness=sp.slic_compactness, n_iter=sp.slic_iters)
+    ccl = {}
+    for name, maps in (("overlaps_4x1024x2048", maps_full),
+                       ("unit_150x224", maps_unit)):
+        h, w = maps.shape[1:]
+        min_size = max(1, (h * w) // (sp.n_slic_segments * 4))
+        out = enforce_connectivity_device(maps, min_size=min_size)
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: enforce_connectivity_device(
+            maps, min_size=min_size), reps=3, warmup=1)[0]
+        t0 = time.time()
+        cpu = enforce_connectivity_device(maps.cpu(), min_size=min_size)
+        ccl[name] = {"min_size": min_size, "ms": ms,
+                     "cpu_seconds": time.time() - t0,
+                     "equal_to_cpu": bool(torch.equal(out.cpu(), cpu)),
+                     "segments_before": int(maps.max()) + 1,
+                     "segments_after_max": int(out.amax()) + 1}
+
+    out = {"phase": "diagnostics",
+           "label_cli": {"images": len(records), "seconds": t_cli,
+                         "panels": len(panels_ok),
+                         "panel_shape": list(panel_shape),
+                         "launches": cli_launches,
+                         "trace_bytes": trace_bytes,
+                         "trace_span_ms": span_ms,
+                         "kernels_busy_ms": busy_ms,
+                         "top_kernels": kernels[:10],
+                         "lloyd_kernel": lloyd[0] if lloyd else None},
+           "panel_seconds_2mp": panel_seconds,
+           "relabel_cli": {"images": len(rel), "seconds": t_relabel,
+                           "panels": len(pred_panels_ok),
+                           "panel_shape": list(pred_shape),
+                           "launches": relabel_launches},
+           "score_full_res": {"images": UNIT, "full_hw": list(FULL_HW),
+                              "equal_to_host": bool(np.array_equal(
+                                  conf_dev, conf_host)),
+                              "first_call_s": t_dev_first,
+                              "ms_with_upload": dev_ms,
+                              "host_scorer_s": t_host},
+           "exact_permutation_anchors": {"num_segments": 70000,
+                                         "equal_to_cpu": anchors_equal,
+                                         "own_draws_ok": own_ok},
+           "enforce_connectivity_device": ccl}
+    emit(out)
+    check(len(records) == N_SCENES and all(panels_ok),
+          f"a {panel_shape} panel per scored image")
+    check(lloyd, "the unit's top 10 kernels name the Lloyd kernel")
+    check(cli_launches["slic_lloyd"] > 0, "the label CLI launched Lloyd")
+    check(len(rel) == VAL_FRAMES and all(pred_panels_ok),
+          f"a {pred_shape} relabel panel per frame")
+    check(relabel_launches["pool2x2"] > 0
+          and relabel_launches["scatter2x2"] > 0,
+          "the relabel CLI launched pool and scatter")
+    check(out["score_full_res"]["equal_to_host"],
+          "the device scorer equals the host scorer")
+    check(anchors_equal and own_ok, "exact-permutation anchors")
+    check(all(v["equal_to_cpu"] for v in ccl.values()),
+          "enforce_connectivity_device on the card equals the CPU")
+    return out
+
+
+def several_ranks_phase(cfg, frames, labels, paths):
+    """Sharded label generation, relabel and a round in a one-rank NCCL
+    group (env://, a free port), each against the same run without a
+    group: the main path's spalign unit (masks bit-equal, images/s of
+    both), a relabel of the 8 val frames (zip members byte-equal), one
+    round of 2 steps (snapshot and zip equal); then dryrun_multichip(1),
+    a spawned NCCL rank against this process."""
+    import zipfile
+
+    import torch
+    import torch.distributed as dist
+
+    from spalign_tpu_torch.config import RoundsConfig, TrainConfig
+    from spalign_tpu_torch.data.cityscapes import ZippedCityscapesRoadDataset
+    from spalign_tpu_torch.data.estimated import EstimatedCityscapesDataset
+    from spalign_tpu_torch.entry import dryrun_multichip
+    from spalign_tpu_torch.models.segnet import build_segnet
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+    from spalign_tpu_torch.selftrain import RoundsDriver
+    from spalign_tpu_torch.selftrain.relabel import relabel_dataset
+    from spalign_tpu_torch.train.checkpoints import (find_snapshot,
+                                                     load_predictor,
+                                                     load_snapshot)
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+
+    class Kept(SpalignLabelGenerator):
+        """The generator, keeping each unit's downloaded packed masks."""
+
+        def finish_batch(self, prepared, handles, timers):
+            out = super().finish_batch(prepared, handles, timers)
+            self.kept.append(handles["host"]["road_packed"].copy())
+            return out
+
+    def label_run(group):
+        gen = Kept(cfg, group=group)
+        gen.kept = []
+        gen.process_dataset(Frames(frames, labels, UNIT), save=False)
+        gen.kept = []
+        records, seconds, launches = drive(gen, Frames(frames, labels,
+                                                       2 * UNIT))
+        return gen.kept, records, seconds, launches
+
+    def relabel_run(tag):
+        out_zip = os.path.join(root, f"relabel_{tag}.0.zip")
+        recs = relabel_dataset(
+            build_segnet("basic"), load_predictor(find_snapshot(
+                paths["train_dir"])),
+            ZippedCityscapesRoadDataset(paths["val_img_zip"],
+                                        paths["val_label_zip"], TRAIN_HW),
+            out_zip, eval_shape=FULL_HW, batch_size=8,
+            score_dtype=np.float16)
+        return out_zip, recs
+
+    def round_run(tag):
+        rcfg = RoundsConfig(n_round=1, iteration=2, val_iteration=2,
+                            loss="soft", batchsize=8, n_labels=8,
+                            result_base_dir=os.path.join(root, tag),
+                            eval_shape=FULL_HW, score_dtype="float16")
+        tcfg = TrainConfig(model="basic", optimizer="Adam",
+                           input_shape=TRAIN_HW, eval_shape=FULL_HW)
+        return RoundsDriver(
+            rcfg, tcfg,
+            lambda src, soft: EstimatedCityscapesDataset(
+                paths["img_zip"], src or paths["labels_dir"], TRAIN_HW,
+                use_soft_label=soft),
+            lambda: ZippedCityscapesRoadDataset(
+                paths["img_zip"], paths["label_zip"], TRAIN_HW)).run()
+
+    def zip_equal(a, b):
+        with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+            return (za.namelist() == zb.namelist() and all(
+                za.read(m) == zb.read(m) for m in za.namelist()),
+                    len(za.namelist()))
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    try:
+        plain = label_run(None)
+        rel_plain = relabel_run("plain")
+        round_plain = round_run("round_plain")
+        os.environ.update(env)
+        dist.init_process_group("nccl", init_method="env://", rank=0,
+                                world_size=1)
+        try:
+            grouped = label_run(dist.group.WORLD)
+            reset_counts()
+            rel_group = relabel_run("group")
+            relabel_launches = read_counts()
+            reset_counts()
+            round_group = round_run("round_group")
+            round_launches = read_counts()
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        for k in env:
+            os.environ.pop(k, None)
+    dry = dryrun_multichip(1)
+
+    masks_equal = (len(plain[0]) == len(grouped[0]) and all(
+        np.array_equal(a, b) for a, b in zip(plain[0], grouped[0])))
+    records_equal = all(
+        a["TP"] == b["TP"] and a["FP"] == b["FP"] and a["FN"] == b["FN"]
+        for a, b in zip(plain[1], grouped[1]))
+    rel_equal, rel_members = zip_equal(rel_plain[0], rel_group[0])
+    round_zip_equal, round_members = zip_equal(round_plain[1],
+                                               round_group[1])
+    s_plain = load_snapshot(find_snapshot(round_plain[0]))["model"]
+    s_group = load_snapshot(find_snapshot(round_group[0]))["model"]
+    round_state_equal = all(torch.equal(s_group[k], v)
+                            for k, v in s_plain.items())
+    out = {"phase": "several_ranks", "backend": backend, "world_size": 1,
+           "spalign": {"images": len(grouped[1]),
+                       "images_per_s_with_group":
+                       len(grouped[1]) / grouped[2],
+                       "images_per_s_without_group":
+                       len(plain[1]) / plain[2],
+                       "units": len(grouped[0]),
+                       "masks_bit_equal": masks_equal,
+                       "records_equal": records_equal,
+                       "launches": grouped[3]},
+           "relabel": {"images": len(rel_group[1]),
+                       "members": rel_members,
+                       "members_byte_equal": rel_equal,
+                       "launches": relabel_launches},
+           "round": {"steps": 2, "state_bit_equal": round_state_equal,
+                     "zip_members": round_members,
+                     "zip_byte_equal": round_zip_equal,
+                     "launches": round_launches},
+           "dryrun_multichip_1": dry}
+    emit(out)
+    check(backend == "nccl", "a one-rank NCCL group")
+    check(masks_equal and records_equal and len(grouped[1]) == 2 * UNIT,
+          "the sharded spalign unit equals the unsharded one")
+    check(grouped[3]["slic_lloyd"] > 0, "the sharded unit launched Lloyd")
+    check(rel_equal and rel_members == 2 * VAL_FRAMES,
+          "sharded relabel's zip members equal the unsharded ones")
+    check(relabel_launches["pool2x2"] > 0
+          and relabel_launches["scatter2x2"] > 0,
+          "the sharded relabel launched pool and scatter")
+    check(round_state_equal and round_zip_equal,
+          "a sharded round equals an unsharded one")
+    check(dry["state_bit_equal"],
+          "dryrun_multichip(1) bit-equal to one rank without a group")
     return out
 
 
@@ -2406,6 +2801,13 @@ def main() -> int:
     # --- the README's remaining tools, then the ablation sweeps
     workflow = workflow_phase(real_paths)
     torch.cuda.empty_cache()
+
+    # --- the diagnostics, then label generation, relabel and a round
+    # over a one-rank NCCL group
+    diag = diagnostics_phase(real_paths, frames, labels, cfg)
+    torch.cuda.empty_cache()
+    ranks = several_ranks_phase(cfg, frames, labels, real_paths)
+    torch.cuda.empty_cache()
     sweep = sweep_phase(frames, labels)
 
     # launches over every path that runs a kernel, each path's counts set
@@ -2417,7 +2819,11 @@ def main() -> int:
                    real["label_cli"]["zip_slic_connectivity"]["launches"][
                        "slic_lloyd"],
                    "sweep.fig7": sweep["grids"]["fig7_device_slic"][
-                       "launches"]["slic_lloyd"]}
+                       "launches"]["slic_lloyd"],
+                   "diagnostics.label_cli":
+                   diag["label_cli"]["launches"]["slic_lloyd"],
+                   "several_ranks.spalign":
+                   ranks["spalign"]["launches"]["slic_lloyd"]}
     assign_paths = {
         "overlaps_path": overlaps["launches"],
         "overlaps_felzenszwalb_path.slic_connectivity":
@@ -2469,7 +2875,12 @@ def main() -> int:
                    "selftrain": selftrain["launches"][name],
                    "data_parallel": dp["launches"][name],
                    "workflow.demo_video":
-                   workflow["demo_video"]["launches"][name]}
+                   workflow["demo_video"]["launches"][name],
+                   "diagnostics.relabel_cli":
+                   diag["relabel_cli"]["launches"][name],
+                   "several_ranks.relabel":
+                   ranks["relabel"]["launches"][name],
+                   "several_ranks.round": ranks["round"]["launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": POOL_REPLACES[name],

@@ -3,14 +3,19 @@
 Counterpart of ``spalign_tpu/cli/label_gen.py`` with the same flags and
 defaults, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels).  Every superpixel engine and both
-k-means inits run.  Not ported: ``--profile_dir`` and diagnostic panels
-(``--save_images``, which raises ``NotImplementedError``).
+k-means inits run.  ``--save_images`` writes the 2x2 diagnostic panel of
+each scored image (``utils/viz.py``); ``--profile_dir`` writes a
+``torch.profiler`` Chrome trace of the run.  Under ``torchrun
+--nproc_per_node N`` each of the N ranks labels its shard of every unit
+(``pipeline/label_gen.py``) and rank 0 writes ``result.json``.
 
 Examples:
   python -m spalign_tpu_torch.cli.label_gen --cityscapes_dir data/cityscapes \
       --split train --out_dir results/labels
   python -m spalign_tpu_torch.cli.label_gen --mode overlaps --synthetic 4 \
       --superpixel_method slic --slic_no_connectivity --out_dir results/demo
+  torchrun --nproc_per_node 2 -m spalign_tpu_torch.cli.label_gen \
+      --cityscapes_dir data/cityscapes --split train --out_dir results/labels
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ from spalign_tpu_torch.config import (AlignConfig, KMeansConfig,
                                       LabelGenConfig, PriorConfig,
                                       SuperpixelConfig)
 from spalign_tpu_torch.eval.results import read_results, write_summary
+from spalign_tpu_torch.parallel import dist as pdist
+from spalign_tpu_torch.utils.timers import profiler_trace
 
 
 def get_args(argv=None):
@@ -80,6 +87,8 @@ def get_args(argv=None):
                    choices=["rgb8", "yuv420"],
                    help="image wire format (pipeline/wire.py): yuv420 "
                         "halves the bytes per image")
+    p.add_argument("--profile_dir", type=str, default=None,
+                   help="write a torch.profiler trace of the run")
     p.add_argument("--resume", action="store_true", default=False,
                    help="skip images already present in out_dir's "
                         "result.json (crash restart)")
@@ -123,6 +132,8 @@ def config_from_args(args) -> LabelGenConfig:
 def main(argv=None):
     args = get_args(argv)
     cfg = config_from_args(args)
+    device = pdist.setup(args.device)  # joins torchrun's process group
+    group = pdist.default_group()
     dataset = build_label_dataset(args, cfg.resize_shape)
     state_dict = load_drn_weights(args)
 
@@ -130,15 +141,19 @@ def main(argv=None):
 
     gen = make_label_generator(cfg, state_dict=state_dict,
                                model_name=args.model, seed=args.seed,
-                               device=args.device)
+                               device=device, group=group)
     skip_done = None
     result_json = os.path.join(cfg.out_dir, "result.json")
-    if args.resume and os.path.exists(result_json):
+    if args.resume and pdist.rank() == 0 and os.path.exists(result_json):
         skip_done = {r["img_fn"] for r in read_results(result_json)}
         print(f"[label_gen] resume: {len(skip_done)} images done")
-    records = gen.process_dataset(dataset, start_index=args.start_index,
-                                  end_index=args.end_index,
-                                  skip_done=skip_done)
+    with profiler_trace(args.profile_dir):
+        records = gen.process_dataset(dataset,
+                                      start_index=args.start_index,
+                                      end_index=args.end_index,
+                                      skip_done=skip_done)
+    if pdist.rank():
+        return records  # rank 0 reports every rank's records
     scored = [r for r in records if "road_iou" in r]
     if scored:
         summary = write_summary(cfg.out_dir, read_results(result_json)
@@ -152,4 +167,7 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        pdist.close()

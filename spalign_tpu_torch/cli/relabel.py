@@ -7,7 +7,9 @@ directory of the port (its ``args.txt`` and ``torch.save`` snapshots);
 images and gt come from a Cityscapes image and label zip pair.  The
 predictions go to ``<out_dir>.0.zip`` (or, with ``--save_each``, to
 ``.npy`` files in ``--out_dir``) and the per-image records to
-``<out_dir>/result.json``.
+``<out_dir>/result.json``.  ``--save_panels`` writes the 1x3 panel of
+each image into ``--out_dir``.  Under ``torchrun --nproc_per_node N`` each
+rank predicts its shard of every batch and rank 0 writes the outputs.
 
 Example:
   python -m spalign_tpu_torch.cli.relabel --param_dir results/train_round1 \\
@@ -69,13 +71,13 @@ def main(argv=None):
 
     from spalign_tpu_torch.data.cityscapes import ZippedCityscapesRoadDataset
     from spalign_tpu_torch.models.segnet import build_segnet
+    from spalign_tpu_torch.parallel import dist
     from spalign_tpu_torch.selftrain.relabel import relabel_dataset
     from spalign_tpu_torch.train.checkpoints import (find_snapshot,
                                                      load_predictor)
-    from spalign_tpu_torch.utils.device import resolve_device
 
     args = get_args(argv)
-    device = resolve_device(args.device)
+    device = dist.setup(args.device)  # joins torchrun's process group
     with open(os.path.join(args.param_dir, "args.txt")) as f:
         train_args = json.load(f)
     model = build_segnet(
@@ -98,6 +100,8 @@ def main(argv=None):
         score_store=args.score_store, save_panels=args.save_panels,
         save_each=args.save_each, device=device)
     elapsed = time.time() - t0
+    if dist.rank():
+        return records
     print(f"wrote {len(records)} predictions to "
           f"{args.out_dir if args.save_each else out_zip} in "
           f"{elapsed:.3f} s ({len(records) / max(elapsed, 1e-9):.3f} "
@@ -106,4 +110,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from spalign_tpu_torch.parallel import dist
+
+    try:
+        main()
+    finally:
+        dist.close()

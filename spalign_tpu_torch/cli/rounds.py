@@ -5,8 +5,10 @@ Same flags, plus ``--device`` (default ``cuda``; ``cpu`` runs the plain
 PyTorch versions of the kernels).  ``--img_zip`` (a Cityscapes image zip,
 or a directory of its PNGs for training) pairs with the estimated labels
 (a directory, zip or .npz of .npy masks); relabeling reads the
-``--img_zip`` / ``--label_zip`` pair.  One rank: ``--num_devices`` above
-1 raises (sharded relabeling is ROADMAP queue 1, item 6).
+``--img_zip`` / ``--label_zip`` pair.  Under ``torchrun --nproc_per_node
+N ... --num_devices N`` each round trains data-parallel and relabels
+sharded over the N ranks (``--num_devices`` must be the group's size, as
+in ``cli/train.py``).
 
 Example (test mode, like the reference's utils/test.sh smokes):
   python -m spalign_tpu_torch.cli.rounds --test_mode \\
@@ -144,4 +146,9 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    main()
+    from spalign_tpu_torch.parallel import dist
+
+    try:
+        main()
+    finally:
+        dist.close()

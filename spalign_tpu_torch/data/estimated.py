@@ -33,7 +33,7 @@ from spalign_tpu_torch.data.cityscapes import (CITYSCAPES_MEAN,
                                                _read_file)
 from spalign_tpu_torch.data.png import decode_png
 from spalign_tpu_torch.data.synthetic import resize_bicubic_f32
-from spalign_tpu_torch.pipeline.label_gen import nn_resize_np
+from spalign_tpu_torch.ops.resize import nn_resize_np
 
 # ImageNet RGB PCA eigenvalues/eigenvectors (Krizhevsky et al. 2012) —
 # the constants behind chainercv.transforms.pca_lighting.

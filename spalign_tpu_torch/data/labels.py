@@ -10,6 +10,7 @@ The official labelIds reduce to a 3-way mask:
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 VOID_IDS = (0, 1, 2, 3, 4, 5, 6)
 ROAD_IDS = (7,)
@@ -22,3 +23,12 @@ def create_label_mask(label_ids: np.ndarray) -> np.ndarray:
     out[np.isin(label_ids, VOID_IDS)] = -1
     out[np.isin(label_ids, ROAD_IDS)] = 1
     return out
+
+
+def remap_label_ids(label_ids: torch.Tensor) -> torch.Tensor:
+    """Tensor form of :func:`create_label_mask` (the JAX package's
+    ``remap_label_ids``): raw labelIds of any shape -> int32 in
+    {-1, 0, 1}."""
+    ids = label_ids.to(torch.int32)
+    out = torch.where(ids <= 6, -1, 0)
+    return torch.where(ids == 7, 1, out).to(torch.int32)

@@ -11,6 +11,7 @@ antialiases when it shrinks, so a shrinking resize passes
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -51,3 +52,18 @@ def nn_resize_cv2(x: torch.Tensor, out_hw) -> torch.Tensor:
         return idx.to(torch.int64).clamp(0, n_in - 1).to(x.device)
 
     return x.index_select(-2, src(oh, h)).index_select(-1, src(ow, w))
+
+
+def nn_resize_np(x: np.ndarray, out_hw) -> np.ndarray:
+    """Host form of :func:`nn_resize_cv2` on numpy arrays: the float32
+    index convention src = floor(dst * (src_len / dst_len)) of cv2's
+    INTER_NEAREST and the native scorer, on the last two dims."""
+    h, w = x.shape[-2:]
+    oh, ow = out_hw
+    ys = np.floor(np.arange(oh, dtype=np.float32)
+                  * (np.float32(h) / np.float32(oh))).astype(np.int64)
+    xs = np.floor(np.arange(ow, dtype=np.float32)
+                  * (np.float32(w) / np.float32(ow))).astype(np.int64)
+    ys = np.clip(ys, 0, h - 1)
+    xs = np.clip(xs, 0, w - 1)
+    return x[..., ys, :][..., :, xs]

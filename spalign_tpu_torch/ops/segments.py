@@ -74,6 +74,26 @@ def anchor_key_bits(num_segments: int) -> int:
     return 31 - max(1, int(num_segments - 1).bit_length())
 
 
+def exact_permutation(num_segments: int) -> bool:
+    """True when the anchor sort key takes a permutation of the pixels in
+    place of random bits: fewer than 15 bits are left below the ids."""
+    return anchor_key_bits(num_segments) < 15
+
+
+def draw_anchor_bits(b: int, n: int, num_segments: int,
+                     generator: Optional[torch.Generator] = None,
+                     device=None) -> torch.Tensor:
+    """The random minor keys of ``b`` images of ``n`` pixels: (b, n)
+    integers in [0, 2**anchor_key_bits), or one ``torch.randperm(n)``
+    per image on the exact-permutation path."""
+    if exact_permutation(num_segments):
+        return torch.stack([torch.randperm(n, generator=generator,
+                                           device=device)
+                            for _ in range(b)])
+    return torch.randint(0, 2 ** anchor_key_bits(num_segments), (b, n),
+                         generator=generator, device=device)
+
+
 def sample_segment_anchors(superpixels: torch.Tensor, n_anchors: int,
                            num_segments: int,
                            random_bits: Optional[torch.Tensor] = None,
@@ -85,13 +105,18 @@ def sample_segment_anchors(superpixels: torch.Tensor, n_anchors: int,
     random order; the first ``n_anchors`` of each group, found from the
     per-segment start offsets, are its anchors (all of them when the
     segment is smaller — the reference's ``shuffle(...)[:n_select]``,
-    batch_spalign_kmeans.py:230-234).
+    batch_spalign_kmeans.py:230-234).  When the segment ids leave fewer
+    than 15 random bits (``num_segments`` > 65536), the key is
+    ``segment_id * n + perm`` instead, ``perm`` a permutation of the n
+    pixels (the JAX package's exact-permutation path); its domain is the
+    JAX package's, ``num_segments * n < 2**31``.
 
     Args:
       superpixels: (..., H, W) integer maps, ids in [0, num_segments).
       random_bits: optional (..., H*W) integers in [0, 2**avail),
-        ``avail = anchor_key_bits(num_segments)``; drawn from
-        ``generator`` when absent.
+        ``avail = anchor_key_bits(num_segments)``, or on the
+        exact-permutation path one permutation of range(H*W) per image;
+        drawn from ``generator`` when absent.
 
     Returns:
       anchor_yx: (..., S, A, 2) float32 pixel coordinates (y, x).
@@ -100,19 +125,21 @@ def sample_segment_anchors(superpixels: torch.Tensor, n_anchors: int,
     h, w = superpixels.shape[-2:]
     lead = tuple(superpixels.shape[:-2])
     n = h * w
-    avail = anchor_key_bits(num_segments)
-    if avail < 15:
-        raise NotImplementedError(
-            f"num_segments={num_segments} leaves {avail} random key bits; "
-            "the exact-permutation path for large segment counts is not "
-            "ported")
     ids = superpixels.reshape(-1, n).to(torch.int64)
     b = ids.shape[0]
     if random_bits is None:
-        random_bits = torch.randint(0, 2 ** avail, (b, n),
-                                    generator=generator, device=ids.device)
-    composite = ids * (2 ** avail) + random_bits.reshape(b, n).to(
-        torch.int64)
+        random_bits = draw_anchor_bits(b, n, num_segments,
+                                       generator=generator,
+                                       device=ids.device)
+    random_bits = random_bits.reshape(b, n).to(torch.int64)
+    if exact_permutation(num_segments):
+        if num_segments * n >= 2 ** 31:
+            raise ValueError(
+                f"num_segments={num_segments} x {n} pixels: the composite "
+                "sort key overflows int32")
+        composite = ids * n + random_bits
+    else:
+        composite = ids * (2 ** anchor_key_bits(num_segments)) + random_bits
     order = torch.sort(composite, dim=1, stable=True).indices
 
     counts = segment_sizes(ids, num_segments).to(torch.int64)  # (b, S)

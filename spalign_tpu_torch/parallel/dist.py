@@ -15,6 +15,13 @@ reductions are explicit, each in the module whose arithmetic needs it:
 
 At world size 1 nothing is reduced, so a one-card step keeps its
 arithmetic bit for bit, with or without a process group.
+
+Sharded inference (label generation, relabel) takes a process group
+explicitly (``group``; None: one rank, no collective): each rank holds
+its contiguous shard of a unit's leading axis (``local_rows``), tensors
+come back in rank order (``all_gather``) and picklable records go to
+rank 0 (``gather_objects``).  With a group every helper runs its
+collective, a one-rank group included.
 """
 
 from __future__ import annotations
@@ -87,6 +94,65 @@ def rank_slice(batch, rank: int, world: int):
     return batch[rank * n:(rank + 1) * n]
 
 
+def group_size(group=None) -> int:
+    """Ranks of ``group``; 1 for None."""
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def group_rank(group=None) -> int:
+    """This process's rank in ``group``; 0 for None."""
+    return 0 if group is None else dist.get_rank(group)
+
+
+def default_group():
+    """The default process group when one is set up, else None."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.group.WORLD
+    return None
+
+
+def local_rows(batch, group=None):
+    """This rank's contiguous shard of ``batch``'s leading axis (a
+    tensor, array or list) in rank order; ``batch`` itself for None.
+    The leading axis must divide by the group's size."""
+    if group is None:
+        return batch
+    world = group_size(group)
+    n = shard_size(len(batch), world)
+    r = group_rank(group)
+    return batch[r * n:(r + 1) * n]
+
+
+def all_gather(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``t`` (equal shapes) concatenated along the leading
+    axis in rank order; ``t`` itself for None.  Bool tensors travel as
+    uint8."""
+    if group is None:
+        return t
+    src = t.to(torch.uint8) if t.dtype == torch.bool else t.contiguous()
+    parts = [torch.empty_like(src) for _ in range(group_size(group))]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts)
+    return out.to(torch.bool) if t.dtype == torch.bool else out
+
+
+def gather_objects(obj, group=None):
+    """The list of every rank's picklable ``obj`` in rank order on rank 0
+    and None on the others; ``[obj]`` for None."""
+    if group is None:
+        return [obj]
+    out = [None] * group_size(group) if group_rank(group) == 0 else None
+    dist.gather_object(obj, out, dst=dist.get_global_rank(group, 0),
+                       group=group)
+    return out
+
+
+def barrier(group=None):
+    """Wait for every rank of ``group`` (nothing for None)."""
+    if group is not None:
+        dist.barrier(group=group)
+
+
 def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     """Sum ``t`` over the ranks in place (no-op at world size 1)."""
     if world_size() > 1:
@@ -94,10 +160,14 @@ def all_reduce_sum(t: torch.Tensor) -> torch.Tensor:
     return t
 
 
-def broadcast_object(obj):
-    """Rank 0's ``obj`` on every rank (``obj`` itself at world size 1)."""
-    if world_size() == 1:
-        return obj
+def broadcast_object(obj, group=None):
+    """Rank 0's ``obj`` on every rank: of ``group``, or of the default
+    group when None (``obj`` itself at world size 1)."""
+    if group is None:
+        if world_size() == 1:
+            return obj
+        group = dist.group.WORLD
     box = [obj]
-    dist.broadcast_object_list(box, 0)
+    dist.broadcast_object_list(box, dist.get_global_rank(group, 0),
+                               group=group)
     return box[0]

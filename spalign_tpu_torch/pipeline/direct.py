@@ -23,6 +23,13 @@ parity mode only pins the DRN to float32 and one group a unit.
 Random draws (the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
 passed in so that tests can hand the port the JAX package's draws.
+
+Over several ranks (``group=``, as ``pipeline/label_gen.py`` says): each
+rank computes the features of its shard of a unit; they are all-gathered
+in rank order, the pixel k-means of every group runs replicated on each
+rank on the whole unit (so it equals one rank's), and each rank keeps
+its own rows (and, in the overlaps mode, refines them with the
+superpixels of its own full-resolution frames).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from spalign_tpu_torch.kernels.slic import slic_grid_size
 from spalign_tpu_torch.ops.kmeans import weighted_kmeans
 from spalign_tpu_torch.ops.prior import pixel_prior
 from spalign_tpu_torch.ops.resize import nn_resize_cv2
+from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.pipeline.label_gen import (KMEANS_CHECK_EVERY,
                                                   LabelGeneratorBase,
                                                   SpalignLabelGenerator,
@@ -142,17 +150,23 @@ class DirectLabelGenerator(LabelGeneratorBase):
     def run_unit(self, wire: torch.Tensor, seeds: Sequence[int],
                  uniforms: Optional[torch.Tensor] = None) -> dict:
         """Decode, DRN features and the pixel k-means of G = len(seeds)
-        groups.  Returns device tensors road, cluster and the
-        KMeansResult ``res``."""
+        groups.  Under a group ``wire`` is this rank's shard and
+        ``uniforms`` the whole unit's.  Returns device tensors road,
+        cluster (this rank's rows) and the KMeansResult ``res``."""
         fmaps = self.features(self.decode(wire))
+        n, h, w, _ = fmaps.shape
         if uniforms is None:
-            n, h, w, _ = fmaps.shape
-            uniforms = draw_uniforms(seeds, n // len(seeds) * h * w,
-                                     self.device)
+            uniforms = draw_uniforms(
+                seeds, self._unit_images(n) // len(seeds) * h * w,
+                self.device)
+        if self.group is not None:
+            fmaps = pdist.all_gather(fmaps.to(torch.float32), self.group)
         road, cluster, res = direct_cluster(
             fmaps, uniforms, k=self.cfg.kmeans.n_clusters,
             n_iter=self.cfg.kmeans.n_iter, prior_params=self._prior_params)
-        return {"road": road, "cluster": cluster, "res": res}
+        return {"road": pdist.local_rows(road, self.group),
+                "cluster": pdist.local_rows(cluster, self.group),
+                "res": res}
 
     def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
         self._wait_ready(prepared)
@@ -189,7 +203,7 @@ class DirectLabelGenerator(LabelGeneratorBase):
             "kmeans_empty_stop": got["empty_stop"].astype(bool).tolist(),
         }}
         if "counts" in prepared:
-            diag["n_superpixels"] = prepared["counts"].tolist()
+            diag["n_superpixels"] = self._unit_counts(prepared["counts"])
         return handles["road"], handles["cluster"], diag
 
 
@@ -266,10 +280,11 @@ class OverlapsLabelGenerator(DirectLabelGenerator):
 def make_label_generator(cfg: LabelGenConfig, state_dict=None,
                          model_name: str = "drn_c_26",
                          seed: Optional[int] = None, device="cuda",
-                         dynamic_k: Optional[int] = None):
-    """The generator of cfg.mode: spalign, direct or overlaps."""
+                         dynamic_k: Optional[int] = None, group=None):
+    """The generator of cfg.mode: spalign, direct or overlaps (``group``:
+    the process group to shard its units over, None for one rank)."""
     cls = {"spalign": SpalignLabelGenerator,
            "direct": DirectLabelGenerator,
            "overlaps": OverlapsLabelGenerator}[cfg.mode]
     return cls(cfg, state_dict=state_dict, model_name=model_name, seed=seed,
-               device=device, dynamic_k=dynamic_k)
+               device=device, dynamic_k=dynamic_k, group=group)

@@ -40,7 +40,24 @@ compiled or shaped by it, and ``dynamic_k`` is only the bound that k
 may not pass (the JAX package compiles its k-means for up to that many
 clusters).
 
-Not ported yet: diagnostic panels (``save_images``).
+Over several ranks (``group=``, the counterpart of the JAX package's
+``mesh=``): one process per device, each loading, uploading and running
+its contiguous shard of every unit (rows [r*N/W, (r+1)*N/W) of a unit of
+N images).  Every rank draws the whole unit's random tensors from the
+same seeded generators and takes its rows, so the seed stream is one
+rank's.  A clustering group's joint k-means needs every superpixel of
+the group: the k-means inputs (features, prior, valid) are all-gathered
+in rank order and the k-means runs replicated, on every rank, on exactly
+one rank's shapes, so its result equals a one-rank run's bit for bit;
+each rank then paints, packs, scores and saves its own images, and rank
+0 gathers the records in image order and alone writes ``result.json``.
+The retry of an empty road mask reads the all-gathered per-image flags,
+so every rank decides it alike.
+
+``save_images`` writes the 2x2 diagnostic panel of each scored image
+(``utils/viz.py``) under the mask PNG's file name; ``score_full_res`` is
+the device scorer, which nothing on the label path calls (the host
+scorer scores).
 """
 
 from __future__ import annotations
@@ -58,6 +75,7 @@ import torch
 
 from spalign_tpu_torch import native
 from spalign_tpu_torch.config import LabelGenConfig, flatten
+from spalign_tpu_torch.data.labels import create_label_mask, remap_label_ids
 from spalign_tpu_torch.data.png import write_png
 from spalign_tpu_torch.eval.results import ResultWriter
 from spalign_tpu_torch.kernels.slic import slic, slic_grid_size
@@ -65,15 +83,19 @@ from spalign_tpu_torch.models.drn import DRN_FACTORIES, preprocess_imagenet
 from spalign_tpu_torch.ops.align import superpixel_align
 from spalign_tpu_torch.ops.kmeans import (paint_clusters, weighted_kmeans,
                                           weighted_kmeans_from_init)
+from spalign_tpu_torch.ops.metrics import confusion_matrix
 from spalign_tpu_torch.ops.parity import (reference_seed_assignment,
                                           reference_superpixel_align,
                                           superpixel_prior_host)
 from spalign_tpu_torch.ops.prior import superpixel_prior
-from spalign_tpu_torch.ops.segments import anchor_key_bits
+from spalign_tpu_torch.ops.resize import nn_resize_cv2, nn_resize_np
+from spalign_tpu_torch.ops.segments import draw_anchor_bits
+from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 from spalign_tpu_torch.pipeline.wire import decode_yuv420
 from spalign_tpu_torch.utils.device import resolve_device
 from spalign_tpu_torch.utils.timers import StageTimer
+from spalign_tpu_torch.utils.viz import save_diagnostic_panel
 
 # k-means sweeps between the host's checks whether every group stopped
 # (one device sync each); the results do not depend on it
@@ -83,8 +105,9 @@ KMEANS_CHECK_EVERY = 16
 class UnitDraws(NamedTuple):
     """Explicit random draws of one unit of G groups of b images.
 
-    anchor_bits: (G*b, H*W) integers in [0, 2**anchor_key_bits(S)), one
-      row per image, in image order.
+    anchor_bits: (G*b, H*W) integers in [0, 2**anchor_key_bits(S)) (a
+      permutation of range(H*W) where ``exact_permutation(S)``), one row
+      per image of the whole unit, in image order.
     uniforms: (G, b*S) float in [0, 1), the seeding shuffle per group.
     """
 
@@ -106,29 +129,38 @@ def _align_and_prior(feature_maps, superpixels, n_anchors, s, append_pos,
 def cluster_groups(feature_maps: torch.Tensor, superpixels: torch.Tensor,
                    draws: UnitDraws, *, n_groups: int, n_anchors: int,
                    num_segments: int, append_pos: bool, k: int,
-                   n_iter: int, prior_params, pos_scale: float = 1.0):
+                   n_iter: int, prior_params, pos_scale: float = 1.0,
+                   group=None):
     """Align + prior + weighted k-means + painting of G independent
-    clustering groups (the images split in order into G groups of
-    B // G); each group clusters jointly and stops on its own.
+    clustering groups (the unit's images split in order into G groups);
+    each group clusters jointly and stops on its own.
 
-    Returns road_masks (B, H, W) bool, cluster_maps (B, H, W) int32,
-    assignment (B, S) int32, the per-group KMeansResult, and ok (G,)
-    bool: every image of the group has a non-empty road mask."""
-    n = superpixels.shape[0]
+    group: a process group over which the unit is sharded (None: one
+    rank); ``feature_maps`` and ``superpixels`` are then this rank's
+    rows of the unit, ``draws`` the whole unit's.  The k-means inputs are
+    all-gathered in rank order and the k-means runs on every rank.
+
+    Returns this rank's road_masks (B, H, W) bool, cluster_maps (B, H, W)
+    int32 and assignment (B, S) int32, the per-group KMeansResult, and ok
+    (G,) bool: every image of the group has a non-empty road mask."""
+    n = superpixels.shape[0] * pdist.group_size(group)
     g, s = n_groups, num_segments
     b = n // g
     superpixels = superpixels.to(torch.int32)
     feats, valid, prior = _align_and_prior(
         feature_maps, superpixels, n_anchors, s, append_pos, prior_params,
-        pos_scale, draws.anchor_bits)
+        pos_scale, pdist.local_rows(draws.anchor_bits, group))
+    feats, valid, prior = (pdist.all_gather(t, group)
+                           for t in (feats, valid, prior))
     res = weighted_kmeans(feats.reshape(g, b * s, -1), prior.reshape(g, -1),
                           valid.reshape(g, -1), k=k, n_iter=n_iter,
                           uniforms=draws.uniforms,
                           check_every=KMEANS_CHECK_EVERY)
-    assign = res.assignment.reshape(n, s)
+    assign = pdist.local_rows(res.assignment.reshape(n, s), group)
     cluster = paint_clusters(superpixels, assign)
     road = cluster == 0
-    ok = road.flatten(1).any(1).reshape(g, b).all(1)
+    has_road = pdist.all_gather(road.flatten(1).any(1), group)
+    ok = has_road.reshape(g, b).all(1)
     return road, cluster, assign, res, ok
 
 
@@ -150,12 +182,11 @@ def draw_unit(seeds: Sequence[int], images_per_group: int, hw: int,
     """The port's own draws: one generator per group, seeded with the
     group's host seed, draws the group's anchor bits, then its
     uniforms."""
-    avail = anchor_key_bits(num_segments)
     bits, unif = [], []
     for seed in seeds:
         gen = torch.Generator(device=device).manual_seed(int(seed))
-        bits.append(torch.randint(0, 2 ** avail, (images_per_group, hw),
-                                  generator=gen, device=device))
+        bits.append(draw_anchor_bits(images_per_group, hw, num_segments,
+                                     generator=gen, device=device))
         unif.append(torch.rand((images_per_group * num_segments,),
                                generator=gen, device=device))
     return UnitDraws(torch.cat(bits), torch.stack(unif))
@@ -177,21 +208,6 @@ def pack_mask_bits(mask_bool: torch.Tensor) -> torch.Tensor:
 def unpack_mask_bits(packed: np.ndarray, w: int) -> np.ndarray:
     """Host inverse of :func:`pack_mask_bits` -> (..., w) bool."""
     return np.unpackbits(packed, axis=-1)[..., :w].astype(bool)
-
-
-def nn_resize_np(x: np.ndarray, out_hw) -> np.ndarray:
-    """cv2.INTER_NEAREST-style resize of the last two dims, with the
-    float32 index convention src = floor(dst * (src_len / dst_len)) of
-    the JAX package's ``ops/resize.nn_resize_cv2`` and native scorer."""
-    h, w = x.shape[-2:]
-    oh, ow = out_hw
-    ys = np.floor(np.arange(oh, dtype=np.float32)
-                  * (np.float32(h) / np.float32(oh))).astype(np.int64)
-    xs = np.floor(np.arange(ow, dtype=np.float32)
-                  * (np.float32(w) / np.float32(ow))).astype(np.int64)
-    ys = np.clip(ys, 0, h - 1)
-    xs = np.clip(xs, 0, w - 1)
-    return x[..., ys, :][..., :, xs]
 
 
 # labelIds -> confusion code: void (0..6) -> 0, road (7) -> 2, other -> 1
@@ -219,6 +235,19 @@ def host_confusion_reference(road_mask: np.ndarray,
     idx = _CONF_LUT[label_ids_full] * 2 + pred  # uint8, values 0..5
     c = np.bincount(idx.ravel(), minlength=6)
     return np.array([[c[2], c[3]], [c[4], c[5]]], np.int64)
+
+
+def score_full_res(road_masks: torch.Tensor, label_ids_full: torch.Tensor,
+                   full_hw) -> torch.Tensor:
+    """Device scorer (counterpart of the JAX package's ``score_full_res``):
+    NN-upsample the (B, h, w) masks to ``full_hw`` (cv2 convention),
+    remap the raw (B, H, W) labelIds to {-1, 0, 1} and count a (2, 2)
+    confusion conf[gt][pred] per image: (B, 2, 2) int64, equal to
+    :func:`host_confusion` of each image.  Nothing on the label path
+    calls it; the host scorer scores."""
+    up = nn_resize_cv2(road_masks.to(torch.uint8), full_hw)
+    gt = remap_label_ids(label_ids_full)
+    return torch.stack([confusion_matrix(p, g, 2) for p, g in zip(up, gt)])
 
 
 def _confusion_record(conf) -> dict:
@@ -308,6 +337,10 @@ class LabelGeneratorBase:
       device: 'cuda' (default; raises without CUDA) or 'cpu'.
       dynamic_k: the most clusters ``reconfigure`` / ``set_n_clusters``
         may ask for (None: no bound), as the JAX package's argument.
+      group: a ``torch.distributed`` process group to shard each unit
+        over (the JAX package's ``mesh=``; module docstring), one process
+        per device, every rank with the same arguments; None (default):
+        one rank.  The parity mode runs on one rank only.
     """
 
     mode = None  # the cfg.mode the subclass runs
@@ -316,9 +349,12 @@ class LabelGeneratorBase:
 
     def __init__(self, cfg: LabelGenConfig, state_dict=None,
                  model_name: str = "drn_c_26", seed: Optional[int] = None,
-                 device="cuda", dynamic_k: Optional[int] = None):
+                 device="cuda", dynamic_k: Optional[int] = None,
+                 group=None):
         self.device = resolve_device(device)
         self.dynamic_k = dynamic_k
+        self.group = group
+        self.rank = pdist.group_rank(group)
         self._check_k(cfg)
         self._validate(cfg)
         self.cfg = cfg
@@ -410,8 +446,12 @@ class LabelGeneratorBase:
                 f"mode={cfg.mode!r}: {type(self).__name__} runs mode="
                 f"{self.mode!r}; make_label_generator picks the generator "
                 f"of a mode")
-        if cfg.save_images:
-            raise NotImplementedError("diagnostic panels are not ported")
+        if (self.group is not None and cfg.mode == "spalign"
+                and cfg.kmeans.init == "reference"):
+            raise NotImplementedError(
+                "the parity mode replays the reference's sequential host "
+                "streams image by image and runs on one rank: pass "
+                "group=None")
         if cfg.upload_format == "rgb8":
             return
         if cfg.upload_format != "yuv420":
@@ -569,15 +609,20 @@ class LabelGeneratorBase:
         unit.  One producer thread loads and uploads ``prefetch`` units
         ahead; ``in_flight`` units are dispatched before the oldest one
         is finished.  ``skip_done``: image names whose batches are all
-        done already (a restart) are skipped.  Returns the per-image
-        records."""
+        done already (a restart) are skipped (rank 0's set, under a
+        group).  Returns the per-image records: under a group, every
+        rank's in image order on rank 0, its own on the others."""
         cfg = self.cfg
         n = len(dataset)
         end_index = n if end_index is None else min(end_index, n)
         save = cfg.save_masks if save is None else save
-        if writer is None and save:
+        if self.rank:
+            writer = None  # rank 0 writes every rank's records
+        elif writer is None and save:
             writer = ResultWriter(cfg.out_dir)
         slices = batch_slices(start_index, end_index, cfg.batchsize)
+        if self.group is not None:
+            skip_done = pdist.broadcast_object(skip_done, self.group)
         if skip_done:
             slices = [(i, j) for i, j in slices
                       if not all(_name(dataset, "image_name", idx)
@@ -602,7 +647,9 @@ class LabelGeneratorBase:
         return records
 
     def _load_unit(self, dataset, unit):
-        indices = [idx for (i, j) in unit for idx in range(i, j)]
+        """Load and upload this rank's shard of a unit."""
+        indices = pdist.local_rows(
+            [idx for (i, j) in unit for idx in range(i, j)], self.group)
         timers = StageTimer()
         with timers.stage("load"):
             imgs, labels = _load_batch(dataset, indices,
@@ -612,6 +659,18 @@ class LabelGeneratorBase:
         prepared = self._host_prepare(imgs, full_images, timers)
         prepared["n_groups"] = len(unit)
         return (indices, imgs, labels, full_images, prepared, timers)
+
+    def _unit_images(self, n_local: int) -> int:
+        """Images of the whole unit of which this rank holds n_local."""
+        return n_local * pdist.group_size(self.group)
+
+    def _unit_counts(self, counts: np.ndarray) -> list:
+        """The whole unit's per-image superpixel counts from this rank's
+        (all-gathered under a group), as the records list them."""
+        if self.group is not None:
+            counts = pdist.all_gather(torch.as_tensor(
+                counts, device=self.device), self.group).cpu().numpy()
+        return counts.tolist()
 
     def _prefetched(self, dataset, units, depth):
         """Yield loaded units in order, ``depth`` ahead on one thread."""
@@ -638,10 +697,12 @@ class LabelGeneratorBase:
 
     def _finish_loaded(self, dataset, item, handles, *, save, writer):
         cfg = self.cfg
-        indices, imgs, labels, _, prepared, timers = item
+        indices, imgs, labels, full_images, prepared, timers = item
         road, _, diag = self.finish_batch(prepared, handles, timers)
         per_group = diag.pop("_per_group")
-        group_size = len(indices) // int(prepared.get("n_groups", 1))
+        group_size = (self._unit_images(len(indices))
+                      // int(prepared.get("n_groups", 1)))
+        offset = self.rank * len(indices)  # this shard's first image
         got = handles["host"]
         # packed masks may travel at 1/u of the mask resolution (overlaps
         # with slic_device_downscale = u: the masks are u x u block-
@@ -662,6 +723,9 @@ class LabelGeneratorBase:
             up_road = nn_resize_np(road_np.astype(np.uint8), out_hw)
             up_cluster = nn_resize_np(got["cluster"], out_hw)
             os.makedirs(cfg.out_dir, exist_ok=True)
+            if (cfg.save_images and labels is not None
+                    and full_images is None):
+                full_images = _load_full_images(dataset, indices)
         times = timers.finish()
         cfg_flat = flatten(cfg)
         records = []
@@ -674,7 +738,7 @@ class LabelGeneratorBase:
             rec.update(cfg_flat)
             rec.update(times)
             rec.update(diag)
-            gi = min(b // group_size,
+            gi = min((offset + b) // group_size,
                      len(next(iter(per_group.values()))) - 1)
             rec.update({k: v[gi] for k, v in per_group.items()})
             records.append(rec)
@@ -691,6 +755,18 @@ class LabelGeneratorBase:
                     write_png(os.path.join(cfg.out_dir,
                                            os.path.basename(img_fn)),
                               up_road[b].astype(np.uint8))
+                elif cfg.save_images:
+                    # the panel takes the mask PNG's file name, so it is
+                    # written in the GT mode only (the reference's split:
+                    # batch_spalign_kmeans.py:361-387 writes panels,
+                    # apply_spalign_kmeans.py the raw masks)
+                    save_diagnostic_panel(
+                        cfg.out_dir, img_fn, full_images[b], up_road[b],
+                        up_cluster[b], create_label_mask(labels[b]))
+        if self.group is not None:
+            parts = pdist.gather_objects(records, self.group)
+            if parts is not None:
+                records = [r for part in parts for r in part]
         if writer is not None:
             writer.append_many(records)
         return records
@@ -752,7 +828,9 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                  sps: Optional[torch.Tensor] = None) -> dict:
         """The whole device program of one unit: G = len(seeds) groups.
         ``sps``: the host engine's maps (ids < max_superpixels); None runs
-        the device SLIC frontend.  Returns device tensors: road,
+        the device SLIC frontend.  Under a group, ``wire`` and ``sps`` are
+        this rank's shard and ``draws`` the whole unit's.  Returns device
+        tensors (this rank's rows): road,
         road_packed, cluster, assign, the KMeansResult ``res``, per-group
         ``ok`` and the superpixel maps."""
         cfg = self.cfg
@@ -763,14 +841,14 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         g = len(seeds)
         hw = sps.shape[1] * sps.shape[2]
         if draws is None:
-            draws = draw_unit(seeds, sps.shape[0] // g, hw,
-                              self.num_segments, self.device)
+            draws = draw_unit(seeds, self._unit_images(sps.shape[0]) // g,
+                              hw, self.num_segments, self.device)
         road, cluster, assign, res, ok = cluster_groups(
             fmaps, sps, draws, n_groups=g, n_anchors=cfg.align.n_anchors,
             num_segments=self.num_segments,
             append_pos=cfg.align.append_pos, k=cfg.kmeans.n_clusters,
             n_iter=cfg.kmeans.n_iter, prior_params=self._prior_params,
-            pos_scale=float(self._downscale))
+            pos_scale=float(self._downscale), group=self.group)
         return {"road": road, "road_packed": pack_mask_bits(road),
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}
@@ -884,8 +962,9 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         n = handles["road"].shape[0]
         counts = prepared.get("counts")
         diag = {
-            "n_superpixels": (counts.tolist() if counts is not None
-                              else [self.num_segments] * n),
+            "n_superpixels": (self._unit_counts(counts)
+                              if counts is not None else
+                              [self.num_segments] * self._unit_images(n)),
             "retries": retries,
             "_per_group": {
                 "kmeans_iters": got["n_iter"].astype(int).tolist(),

@@ -8,6 +8,12 @@ memory for one np.savez at the end (run_train_rounds.py:191-235).  Here
 batches run on one device, and a background writer streams each (pred,
 score) pair into the output zip as .npy members, so memory stays bounded
 by the queue depth.
+
+Under a process group (``torchrun``; the JAX package's ``mesh=``) each
+rank loads and predicts its contiguous shard of every batch; the PRED
+bits, the scores and the confusions go to rank 0, which alone writes the
+zip, ``result.json`` and the ``save_each`` files, so the zip's members
+are a one-rank run's.  Each rank writes the panels of its own images.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
+import warnings
 import zipfile
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -27,10 +34,11 @@ import torch
 from spalign_tpu_torch import native
 from spalign_tpu_torch.eval.results import ResultWriter
 from spalign_tpu_torch.models.segnet import predict_labels
-from spalign_tpu_torch.parallel.dist import setup, world_size
+from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.pipeline.wire import decode_yuv420
 from spalign_tpu_torch.utils.device import full_float32
 from spalign_tpu_torch.utils.timers import StageTimer
+from spalign_tpu_torch.utils.viz import save_prediction_panel
 
 _SCORE_DTYPES = {np.dtype(np.float32): torch.float32,
                  np.dtype(np.float16): torch.float16}
@@ -141,25 +149,32 @@ def relabel_dataset(model, variables, dataset, out_zip: str,
     in ``out_dir`` (or beside ``out_zip``) instead of the zip (reference
     --save_each, run_train_rounds.py:36); the reference's own save_each
     stores the PRED under the _scores name (labels_from_segnet.py:93),
-    a bug not reproduced.  save_panels (the reference's diagnostic
-    figure) is ROADMAP queue 1, item 5, and raises.
+    a bug not reproduced.  save_panels: the 1x3 panel (overlay, GT,
+    prediction; ``utils/viz.py``) of each image in ``out_dir``, which it
+    needs, with a dataset that has ``full_images``; without them it warns
+    and writes none, as the JAX package does.
+
+    Under the default process group (``torchrun``) the batches are
+    sharded over its ranks (module docstring): ``batch_size`` must divide
+    by the world size, and a tail batch that does not is padded with its
+    last image, whose copies are dropped again.
 
     Returns the per-image records: ``img_fn``, the road metrics of the
     PRED against the gt (none without gt) and the batch's host stage
     seconds (``time_load``, ``time_dispatch``, ``time_download``,
     ``time_ch1``, ``time_confusion``, ``time_write``); with ``out_dir``
-    they are appended to ``out_dir/result.json`` too.
+    they are appended to ``out_dir/result.json`` too.  Under a group rank
+    0 returns every rank's records and the others none.
     """
-    dev = setup(device)  # under torchrun: joins its group, to refuse it
+    dev = pdist.setup(device)  # under torchrun: joins its group
     full_float32(dev)
-    if world_size() > 1:
-        raise NotImplementedError(
-            "relabel_dataset under a process group of more than one rank: "
-            "sharded relabeling is ROADMAP queue 1, item 6")
-    if save_panels:
-        raise NotImplementedError(
-            "save_panels: the diagnostic panels (utils/viz.py) are ROADMAP "
-            "queue 1, item 5")
+    group = pdist.default_group()
+    world, rank = pdist.group_size(group), pdist.group_rank(group)
+    pdist.shard_size(batch_size, world)
+    if save_panels and not (out_dir and hasattr(dataset, "full_images")):
+        warnings.warn("save_panels needs out_dir and a dataset with "
+                      "full_images(); skipping panels")
+        save_panels = False
     if input_wire not in ("auto", "u8", "f32", "f16", "yuv420"):
         raise ValueError(f"unknown input_wire {input_wire!r}")
     if score_store not in ("eval", "network"):
@@ -195,19 +210,31 @@ def relabel_dataset(model, variables, dataset, out_zip: str,
 
     each_dir = None
     writer = None
-    if save_each:
-        each_dir = out_dir or (os.path.dirname(out_zip) or ".")
-        os.makedirs(each_dir, exist_ok=True)
-    else:
-        writer = NpzShardWriter(out_zip)
-    results = ResultWriter(out_dir) if out_dir else None
+    results = None
+    if rank == 0:  # the one writer of the outputs
+        if save_each:
+            each_dir = out_dir or (os.path.dirname(out_zip) or ".")
+            os.makedirs(each_dir, exist_ok=True)
+        else:
+            writer = NpzShardWriter(out_zip)
+        results = ResultWriter(out_dir) if out_dir else None
     n = len(dataset)
     slices = [(i, min(i + batch_size, n)) for i in range(0, n, batch_size)]
+
+    def shard(sl):
+        """This rank's rows of a batch: (indices, how many are real); the
+        batch is padded with its last image to a multiple of the world
+        size first."""
+        idx = list(range(*sl))
+        idx += idx[-1:] * (-len(idx) % world)
+        local = pdist.local_rows(idx, group)
+        return local, max(0, min(len(local), sl[1] - sl[0]
+                                 - rank * len(local)))
 
     def load(sl):
         timers = StageTimer()
         with timers.stage("load"):
-            idx = list(range(*sl))
+            idx, n_real = shard(sl)
             with ThreadPoolExecutor(min(LOAD_THREADS, len(idx))) as pool:
                 items = list(pool.map(dataset.__getitem__, idx))
             imgs = np.asarray(np.stack([it[0] for it in items]), np.float32)
@@ -225,7 +252,7 @@ def relabel_dataset(model, variables, dataset, out_zip: str,
                 host = host.pin_memory()
         # the resolution rides with the batch: the yuv420 planes are 1-D,
         # and the producer may load batch k+2 while k is dispatched
-        return idx, host, gts, imgs.shape[1:3], timers
+        return idx[:n_real], host, gts, imgs.shape[1:3], timers
 
     @torch.no_grad()
     def dispatch(loaded):
@@ -251,16 +278,39 @@ def relabel_dataset(model, variables, dataset, out_zip: str,
         idx, _, gts, _, timers = loaded
         with timers.stage("download"):
             got = _landed(*fetched)
-        preds = got["pred"]
+        preds = got["pred"][:len(idx)]
         scores = got.get("score")
-        if scores is not None and scores.shape[1] == 1:
-            with timers.stage("ch1"):
-                scores = np.concatenate([scores, _one_minus(scores)], 1)
+        scores = None if scores is None else scores[:len(idx)]
         confs = None
         if gts is not None:
+            gts = gts[:len(idx)]
             with timers.stage("confusion"):
                 confs = [native.confusion_remapped(p, g)
                          for p, g in zip(preds, gts)]
+        if save_panels:
+            with timers.stage("panels"):
+                for b, j in enumerate(idx):
+                    save_prediction_panel(
+                        out_dir, dataset.image_name(j),
+                        dataset.full_images([j])[0], preds[b],
+                        None if gts is None else gts[b])
+        if group is not None:
+            with timers.stage("gather"):
+                parts = pdist.gather_objects(
+                    (idx, np.packbits(preds, axis=-1), scores, confs), group)
+            if rank:
+                return []
+            idx = [j for part in parts for j in part[0]]
+            preds = np.concatenate([np.unpackbits(
+                part[1], axis=-1, count=preds.shape[-1]).astype(bool)
+                for part in parts])
+            if scores is not None:
+                scores = np.concatenate([part[2] for part in parts])
+            if confs is not None:
+                confs = [c for part in parts for c in part[3]]
+        if scores is not None and scores.shape[1] == 1:
+            with timers.stage("ch1"):
+                scores = np.concatenate([scores, _one_minus(scores)], 1)
         with timers.stage("write"):
             for b, j in enumerate(idx):
                 base = os.path.splitext(

@@ -7,7 +7,11 @@ for relabeling).  Here every round runs in one process on one device:
 train -> relabel (batched inference, streamed zip) -> retrain, resuming
 the whole optimizer state from the previous round's snapshot with the
 iteration budget extended by ``iteration`` a round (the reference's
-resume semantics, run_train_rounds.py:277-295).
+resume semantics, run_train_rounds.py:277-295).  Under ``torchrun``
+every rank runs the driver: each round trains data-parallel
+(``train/trainer.py``) and relabels sharded (``selftrain/relabel.py``);
+a barrier follows, then every rank reads the new zip, as the JAX
+package relabels on the trainer's mesh.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 
 from spalign_tpu_torch.config import RoundsConfig, TrainConfig, to_json
 from spalign_tpu_torch.data.loader import PrefetchLoader
-from spalign_tpu_torch.parallel.dist import setup, world_size
+from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.selftrain.relabel import relabel_dataset
 from spalign_tpu_torch.train.checkpoints import (SnapshotCallback,
                                                  find_snapshot,
@@ -48,9 +52,10 @@ class RoundsDriver:
     soft or MSE loss applies from round 2, whose relabel zips carry score
     members.
 
-    device: 'cuda' (default; raises without CUDA) or 'cpu'.  One rank
-    only: under a process group of more than one rank (or
-    ``num_devices`` > 1) it raises, since its relabel is not sharded.
+    device: 'cuda' (default; raises without CUDA) or 'cpu'.  Under a
+    process group every rank constructs the driver with the same
+    arguments; ``train_cfg.num_devices`` must be the group's size (None:
+    whatever it is), as the Trainer checks.
     """
 
     def __init__(self, cfg: RoundsConfig, train_cfg: TrainConfig,
@@ -59,11 +64,7 @@ class RoundsDriver:
                  make_val_batches: Optional[Callable] = None,
                  evaluator_factory: Optional[Callable] = None,
                  device="cuda"):
-        self.device = setup(device)  # under torchrun: joins its group
-        if max(world_size(), train_cfg.num_devices or 1) > 1:
-            raise NotImplementedError(
-                "self-training rounds over more than one rank: sharded "
-                "relabeling is ROADMAP queue 1, item 6")
+        self.device = pdist.setup(device)  # under torchrun: joins its group
         if cfg.test_mode:
             # reference --test_mode caps the data volumes too, not just
             # the schedule (run_train_rounds.py:56-61: n_use_data=16,
@@ -118,7 +119,8 @@ class RoundsDriver:
                    if tc.n_use_data else None)
         batches = iter(PrefetchLoader(dataset, tc.batchsize, shuffle=True,
                                       seed=tc.seed + n_round,
-                                      indices=indices))
+                                      indices=indices, rank=trainer.rank,
+                                      world=trainer.world))
         evaluator = (self.evaluator_factory(trainer)
                      if self.evaluator_factory is not None else None)
         try:
@@ -145,6 +147,8 @@ class RoundsDriver:
             out_dir=os.path.join(
                 result_dir, f"iter-{cfg.iteration * n_round}_eval-train"),
             device=self.device)
+        # rank 0 wrote the snapshot and the zip that every rank reads next
+        pdist.barrier(pdist.default_group())
         return out_zip
 
     def run(self, initial_label_source: Optional[str] = None,
@@ -168,10 +172,11 @@ class RoundsDriver:
         cfg = self.cfg
         # the rounds' own provenance (each round's trainer writes its
         # args.txt; this records the relabel wire and store choices too)
-        os.makedirs(cfg.result_base_dir, exist_ok=True)
-        with open(os.path.join(cfg.result_base_dir,
-                               "rounds_args.txt"), "w") as f:
-            f.write(to_json(cfg))
+        if pdist.rank() == 0:
+            os.makedirs(cfg.result_base_dir, exist_ok=True)
+            with open(os.path.join(cfg.result_base_dir,
+                                   "rounds_args.txt"), "w") as f:
+                f.write(to_json(cfg))
         if resume_round <= 1:
             prev_dir = self._train_round(1, initial_label_source)
             label_zip = self._relabel(1, prev_dir)

@@ -4,12 +4,15 @@ The reference writes an elapsed_times dict into every result.json record
 (batch_spalign_kmeans.py:428-458: time_superpixel, time_kmeans,
 elapsed_time).  StageTimer keeps that surface.  On CUDA, work is queued
 asynchronously, so a stage that measures the card passes its device and
-ends with ``torch.cuda.synchronize``.
+ends with ``torch.cuda.synchronize``.  ``profiler_trace`` is the
+counterpart of the JAX package's ``jax.profiler`` trace: a
+``torch.profiler`` Chrome trace of a region.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import time
 from typing import Dict, Optional
 
@@ -42,3 +45,23 @@ class StageTimer:
     def finish(self) -> Dict[str, float]:
         self.times["elapsed_time"] = time.time() - self._t0
         return dict(self.times)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: Optional[str]):
+    """Profile the region with ``torch.profiler`` (CPU activity, and CUDA
+    where a card is present) when ``log_dir`` is set, and write its
+    Chrome trace as ``log_dir/trace_<pid>.json`` at the end."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(log_dir,
+                                          f"trace_{os.getpid()}.json"))

@@ -26,7 +26,7 @@ import numpy as np
 
 from spalign_tpu_torch import native
 from spalign_tpu_torch.data.png import decode_png
-from spalign_tpu_torch.pipeline.label_gen import nn_resize_np
+from spalign_tpu_torch.ops.resize import nn_resize_np
 from spalign_tpu_torch.utils.timers import StageTimer
 
 ROAD_COLOR = (128, 64, 128)  # Cityscapes road RGB

@@ -519,3 +519,45 @@ def test_one_rank_nccl_group_is_bit_equal(cuda, tmp_path, monkeypatch):
     assert got_losses == want_losses
     for k, v in want.items():
         assert torch.equal(got[k], v), k
+
+
+def test_score_full_res_on_the_card_equals_the_cpu(cuda):
+    """The device scorer on the card against its CPU run and the host
+    scorer: equal (integer counts)."""
+    from spalign_tpu_torch.pipeline.label_gen import (host_confusion,
+                                                      score_full_res)
+
+    rng = np.random.RandomState(0)
+    road = torch.from_numpy(rng.rand(4, 56, 112) > 0.5)
+    ids = torch.from_numpy(rng.randint(0, 34, (4, 256, 512)).astype(
+        np.uint8))
+    got = score_full_res(road.to(cuda), ids.to(cuda), (256, 512)).cpu()
+    assert torch.equal(got, score_full_res(road, ids, (256, 512)))
+    for b in range(4):
+        np.testing.assert_array_equal(
+            got[b].numpy(), host_confusion(road[b].numpy(), ids[b].numpy()))
+
+
+def test_ccl_on_the_card_equals_the_cpu(cuda):
+    from spalign_tpu_torch.kernels.experimental.ccl import (
+        enforce_connectivity_device)
+
+    lab = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 5, (3, 64, 96)).astype(np.int32))
+    for min_size in (1, 6):
+        got = enforce_connectivity_device(lab.to(cuda), min_size=min_size)
+        assert torch.equal(got.cpu(), enforce_connectivity_device(
+            lab, min_size=min_size))
+
+
+def test_exact_permutation_anchors_on_the_card(cuda):
+    from spalign_tpu_torch.ops.segments import sample_segment_anchors
+
+    sp = torch.from_numpy((np.arange(100)[:, None] // 5 * 24
+                           + np.arange(120)[None] // 5).astype(np.int32))
+    perm = torch.randperm(sp.numel(), generator=torch.Generator(
+    ).manual_seed(0))
+    got = sample_segment_anchors(sp.to(cuda), 10, 70000,
+                                 random_bits=perm.to(cuda))
+    want = sample_segment_anchors(sp, 10, 70000, random_bits=perm)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))

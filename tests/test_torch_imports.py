@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from spalign_tpu_torch import config
+from spalign_tpu_torch import entry as port_entry
 from spalign_tpu_torch.cli import bottom_half as cli_bottom_half
 from spalign_tpu_torch.cli import convert_model as cli_convert_model
 from spalign_tpu_torch.cli import demo_video as cli_demo_video
@@ -93,6 +94,10 @@ def test_the_scan_sees_the_whole_package():
             "spalign_tpu_torch/cli/demo_video.py",
             "spalign_tpu_torch/eval/tables.py",
             "spalign_tpu_torch/utils/video.py",
+            "spalign_tpu_torch/utils/viz.py",
+            "spalign_tpu_torch/utils/timers.py",
+            "spalign_tpu_torch/entry.py",
+            "spalign_tpu_torch/kernels/experimental/ccl.py",
             "chip_smoke.py"} <= names
 
 
@@ -122,7 +127,8 @@ def test_entry_points_default_to_cuda():
     for factory in DRN_FACTORIES.values():
         assert _default(factory) == "cuda"
     for entry in (Trainer.__init__, Evaluator.__init__, build_segnet,
-                  build_model):
+                  build_model, port_entry.entry,
+                  port_entry.dryrun_multichip):
         assert _default(entry) == "cuda"
 
 
@@ -171,6 +177,10 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         cli_demo_video.main(_DEMO_ARGS)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli_bottom_half.main(["--synthetic", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_entry.entry()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        port_entry.dryrun_multichip(1)
     pth = str(tmp_path / "drn.pth")
     torch.save(DRN_FACTORIES["drn_c_26"](device="cpu").state_dict(), pth)
     with pytest.raises(RuntimeError, match="CUDA"):

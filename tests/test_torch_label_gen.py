@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as tdist
 
 from spalign_tpu.config import LabelGenConfig as JaxLabelGenConfig
 from spalign_tpu.config import SuperpixelConfig as JaxSuperpixelConfig
@@ -242,12 +243,27 @@ def test_downscaled_superpixels_run(pair):
     assert diag["kmeans_iters"] >= 1
 
 
-@pytest.mark.parametrize("change", [dict(mode="direct"),
-                                    dict(save_images=True)])
-def test_unported_paths_raise(change):
+@pytest.mark.parametrize("change", [
+    dict(mode="direct"),
+    # the parity mode over a process group (here a one-rank gloo group):
+    # it replays the reference's sequential host streams on one rank.
+    # (save_images, which raised here before, is ported:
+    # tests/test_torch_diagnostics.py)
+    dict(kmeans=tcfg.KMeansConfig(init="reference"))])
+def test_unported_paths_raise(change, tmp_path):
     cfg = dataclasses.replace(_port_cfg(), **change)
-    with pytest.raises(NotImplementedError):
-        tlg.SpalignLabelGenerator(cfg, device="cpu")
+    if "mode" in change:
+        with pytest.raises(NotImplementedError):
+            tlg.SpalignLabelGenerator(cfg, device="cpu")
+        return
+    tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                             rank=0, world_size=1)
+    try:
+        with pytest.raises(NotImplementedError, match="one rank"):
+            tlg.SpalignLabelGenerator(cfg, device="cpu",
+                                      group=tdist.group.WORLD)
+    finally:
+        tdist.destroy_process_group()
 
 
 def _to_jax(cfg):

@@ -38,6 +38,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as tdist
 import torch.nn.functional as F
 
 from spalign_tpu import native as jnative
@@ -55,7 +56,6 @@ from spalign_tpu_torch.data.estimated import (EstimatedCityscapesDataset,
 from spalign_tpu_torch.data.png import encode_png, write_png
 from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
 from spalign_tpu_torch.models.segnet import SegNetBasic, build_segnet
-from spalign_tpu_torch.selftrain import relabel as relabel_mod
 from spalign_tpu_torch.selftrain.relabel import (NpzShardWriter,
                                                  relabel_dataset)
 
@@ -432,15 +432,31 @@ def test_npz_shard_writer_readers(tmp_path):
         w.close()
 
 
-def test_unported_options_raise(zipped, tmp_path, monkeypatch):
+def test_unported_options_raise(zipped, tmp_path):
+    """save_panels and relabel over a process group raised
+    NotImplementedError before they were ported.  save_panels without
+    out_dir now warns and writes no panel (the JAX package's rule), and
+    under a process group (here a one-rank gloo group) relabel writes the
+    zip a run without one writes; tests/test_torch_sharded.py holds 2
+    ranks to one."""
     model = build_segnet(device="cpu")
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.warns(UserWarning, match="save_panels needs out_dir"):
         relabel_dataset(model, None, zipped, str(tmp_path / "p.0.zip"),
-                        save_panels=True, device="cpu")
-    monkeypatch.setattr(relabel_mod, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
+                        save_panels=True, eval_shape=EVAL, device="cpu")
+    assert not glob.glob(str(tmp_path / "*.png"))
+    relabel_dataset(model, None, zipped, str(tmp_path / "one.0.zip"),
+                    eval_shape=EVAL, device="cpu")
+    tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                             rank=0, world_size=1)
+    try:
         relabel_dataset(model, None, zipped, str(tmp_path / "s.0.zip"),
-                        device="cpu")
+                        eval_shape=EVAL, device="cpu")
+    finally:
+        tdist.destroy_process_group()
+    with zipfile.ZipFile(tmp_path / "one.0.zip") as a, \
+            zipfile.ZipFile(tmp_path / "s.0.zip") as b:
+        assert a.namelist() == b.namelist()
+        assert all(a.read(m) == b.read(m) for m in a.namelist())
 
 
 def _inputs(name, rng):

@@ -25,7 +25,6 @@ from spalign_tpu_torch.data.estimated import EstimatedCityscapesDataset
 from spalign_tpu_torch.data.png import encode_png, write_png
 from spalign_tpu_torch.data.synthetic import SyntheticRoadScenes
 from spalign_tpu_torch.selftrain import NpzShardWriter, RoundsDriver
-from spalign_tpu_torch.selftrain import rounds as rounds_mod
 from spalign_tpu_torch.selftrain.rounds import _Subset
 from spalign_tpu_torch.train.checkpoints import find_snapshot, load_snapshot
 
@@ -294,13 +293,15 @@ def test_rounds_config_and_to_json_equal_jax():
         jconfig.RoundsConfig(**cfg))
 
 
-def test_more_than_one_rank_raises(tmp_path, monkeypatch):
+def test_more_than_one_rank_raises(tmp_path):
+    """More devices than the process group has ranks (here: no group)
+    raise, naming torchrun, as cli/train.py's do.  (The rounds over more
+    than one rank are ported: tests/test_torch_sharded.py.)"""
     ds, img_dir, init_zip = setup_sources(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_driver(ds, img_dir, init_zip, str(tmp_path), num_devices=2)
-    monkeypatch.setattr(rounds_mod, "world_size", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_driver(ds, img_dir, init_zip, str(tmp_path))
+    driver = make_driver(ds, img_dir, init_zip, str(tmp_path),
+                         num_devices=2)
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        driver.run()
 
 
 def _write_zips(tmp_path, ds):
