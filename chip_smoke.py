@@ -2,7 +2,8 @@
 path (stage 1), then SegNetBasic self-training on its labels (stage 2):
 training, relabeling and rounds; then the remaining tools of the README
 workflow and the ablation sweeps; then the diagnostics and the paths over
-a process group.
+a process group; last the parity mode over a group, the training curves
+and the examples.
 
     python3 chip_smoke.py
 
@@ -54,7 +55,8 @@ Run from the root of the repository on a machine with one CUDA GPU and
                a step), one step split by CUDA events, one step under
                torch.profiler (device busy time, top kernels), then the
                Evaluator on 8 synthetic scenes at 1024x2048; losses
-               finite and falling, metrics finite
+               finite and falling, metrics finite; then one step through
+               fit with the Evaluator, which draws the training curves
   overlaps_path  make_label_generator in the overlaps mode (DRN-C-26 full
                width, bf16, 224^2 features, batch 30, yuv420 wire, device
                SLIC of the 1024x2048 frames: 100 segments, 10 sweeps) with
@@ -153,8 +155,12 @@ Run from the root of the repository on a machine with one CUDA GPU and
                both), a relabel of the 8 val frames (zip members
                byte-equal), one round of 2 steps relabelling 8 frames
                (snapshot bit-equal, zip members byte-equal); then
-               dryrun_multichip(1), a spawned NCCL rank against this
-               process (bit-equal)
+               dryrun_multichip(1) at the JAX dry run's scope, a spawned
+               NCCL rank against this process: the train step (bit-
+               equal), the cluster and fused-SLIC paths and the direct and
+               overlaps generators (masks equal), two rounds (losses
+               finite and moving); each part's seconds, the launches of
+               every kernel in the rank and in this process
   sweep        cli.sweep in-process on main_path's frames, one unit of 150
                a value: fig 7 (k = 2..8) on the device-SLIC unit (the
                Lloyd kernel must launch) and fig 9's felzenszwalb scale at
@@ -162,6 +168,13 @@ Run from the root of the repository on a machine with one CUDA GPU and
                value; then one dynamic-k generator against fresh static
                generators on the same seed stream at k = 2 and 8: equal
                cluster maps
+  last_gaps    the parity unit (30 at 224^2, float32 DRN-C-26,
+               felzenszwalb) in a one-rank NCCL group against no group:
+               records but the host clocks, masks and cluster maps equal,
+               seconds of both; the four training curves (loss, ious,
+               prerec, accuracy) that train_path's evaluation step drew,
+               decoded back; the quickstart and explore examples at their
+               defaults on the card: seconds, road IoU, kernel launches
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -650,8 +663,10 @@ def val_batch():
 
 def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
     """Stage 1 labels 60 frames into .npy masks; stage 2 trains
-    SegNetBasic on them at the reference recipe.  Returns the kernel
-    launch counts of the timed steps."""
+    SegNetBasic on them at the reference recipe, then one more step
+    through ``fit`` with the evaluator, which draws the training curves.
+    Returns the kernel launch counts of the timed steps and the curve
+    step's result directory, seconds and launches."""
     import torch
 
     from spalign_tpu_torch.config import TrainConfig
@@ -706,7 +721,6 @@ def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
 
     breakdown = step_breakdown(trainer, next(loader))
     profiled = profile_step(trainer, next(loader))
-    loader.close()
     with open(os.path.join(cfg.result_dir, "log")) as f:
         losses = [r["main/loss"] for r in json.load(f) if "main/loss" in r]
     t0 = time.time()
@@ -716,6 +730,20 @@ def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
     metrics = Evaluator(trainer.model, lambda: iter([val]),
                         cfg.eval_shape)()
     t_eval = time.time() - t0
+    # one more step through fit with the evaluator: at its evaluation
+    # point the trainer draws the four training curves into result_dir
+    trainer.cfg = dataclasses.replace(trainer.cfg,
+                                      train_iters=trainer.step + 1)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.time()
+    trainer.fit(loader, evaluator=Evaluator(trainer.model,
+                                            lambda: iter([val]),
+                                            cfg.eval_shape))
+    torch.cuda.synchronize()
+    curves = {"result_dir": cfg.result_dir, "seconds": time.time() - t0,
+              "launches": read_counts()}
+    loader.close()
 
     step_ms = elapsed / TRAIN_TIMED * 1e3
     pool_ms = (pool_summary["pool2x2"]["kernel_ms"]
@@ -746,7 +774,8 @@ def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
                                 for k, v in launches.items()},
           "peak_memory_bytes": peak,
           "val": metrics, "val_images": len(val[0]),
-          "val_data_seconds": t_val_data, "eval_seconds": t_eval})
+          "val_data_seconds": t_val_data, "eval_seconds": t_eval,
+          "curves_step": curves})
     check(len(losses) == TRAIN_WARMUP + TRAIN_TIMED, "one loss per step")
     check(all(np.isfinite(losses)), "finite losses")
     check(np.mean(losses[-5:]) < np.mean(losses[:5]), "the loss falls")
@@ -756,7 +785,7 @@ def train_phase(label_cfg, frames224, frames512, labels, pool_summary):
           f"4, 8 and 4 launches per step, got {launches}")
     check(all(np.isfinite(v) for v in metrics.values()),
           "finite val metrics")
-    return launches
+    return launches, curves
 
 
 def per_sweep_split(lab, c0, shape, n_iter):
@@ -981,14 +1010,9 @@ def reset_counts():
 
 
 def read_counts():
-    from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
+    from spalign_tpu_torch.kernels import launch_counts
 
-    return {"slic_lloyd": slic_fused.slic_lloyd.launches,
-            "slic_assign": slic_assign.slic_assign.launches,
-            "slic_assign_sums": slic_assign.slic_assign.sums_launches,
-            "pool2x2": pooling.pool2x2.launches,
-            "scatter2x2": pooling.scatter2x2.launches,
-            "gather2x2": pooling.gather2x2.launches}
+    return launch_counts()
 
 
 def stage_seconds(records, per):
@@ -2482,8 +2506,11 @@ def several_ranks_phase(cfg, frames, labels, paths):
     group (env://, a free port), each against the same run without a
     group: the main path's spalign unit (masks bit-equal, images/s of
     both), a relabel of the 8 val frames (zip members byte-equal), one
-    round of 2 steps (snapshot and zip equal); then dryrun_multichip(1),
-    a spawned NCCL rank against this process."""
+    round of 2 steps (snapshot and zip equal); then dryrun_multichip(1):
+    its five parts in a spawned NCCL rank against this process (the
+    train step bit-equal, the label paths' masks equal, two rounds with
+    finite, moving losses), every kernel's launches in the rank and in
+    this process counted."""
     import zipfile
 
     import torch
@@ -2577,7 +2604,11 @@ def several_ranks_phase(cfg, frames, labels, paths):
         torch.backends.cudnn.deterministic = deterministic
         for k in env:
             os.environ.pop(k, None)
+    torch.cuda.synchronize()
+    reset_counts()
     dry = dryrun_multichip(1)
+    torch.cuda.synchronize()
+    dry["one_rank_launches"] = read_counts()
 
     masks_equal = (len(plain[0]) == len(grouped[0]) and all(
         np.array_equal(a, b) for a, b in zip(plain[0], grouped[0])))
@@ -2622,8 +2653,141 @@ def several_ranks_phase(cfg, frames, labels, paths):
           "the sharded relabel launched pool and scatter")
     check(round_state_equal and round_zip_equal,
           "a sharded round equals an unsharded one")
-    check(dry["state_bit_equal"],
-          "dryrun_multichip(1) bit-equal to one rank without a group")
+    check(dry["train_step"]["state_bit_equal"],
+          "dryrun_multichip(1)'s step bit-equal to one rank without a group")
+    check(all(dry[p]["masks_equal"] for p in ("cluster", "fused_slic",
+                                              "direct", "overlaps")),
+          "dryrun_multichip(1)'s label paths equal one rank's")
+    for counts in (dry["rank_launches"], dry["one_rank_launches"]):
+        check(counts["slic_lloyd"] > 0 and counts["slic_assign"] > 0
+              and counts["pool2x2"] > 0,
+              f"dryrun_multichip(1) launched Lloyd, assignment and pool: "
+              f"{counts}")
+    return out
+
+
+def last_gaps_phase(frames, labels, curves):
+    """The paths that close the port against the JAX package: the parity
+    unit (one group of 30 at 224^2, float32 DRN-C-26, felzenszwalb) in a
+    one-rank NCCL group against the same unit with no group (records but
+    the host clocks, masks and cluster maps equal); the four training
+    curves train_path's evaluation drew, decoded back; the quickstart
+    and explore examples at their defaults, with their seconds, road IoU
+    and kernel launches."""
+    import torch
+    import torch.distributed as dist
+
+    from spalign_tpu_torch.config import KMeansConfig, LabelGenConfig
+    from spalign_tpu_torch.data.png import decode_png
+    from spalign_tpu_torch.examples import explore, quickstart
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+    from spalign_tpu_torch.utils.curves import CURVES
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gaps_")
+
+    def parity_run(tag, group):
+        cfg = LabelGenConfig(batchsize=30, upload_format="rgb8",
+                             out_dir=os.path.join(root, tag),
+                             kmeans=KMeansConfig(init="reference"))
+        gen = SpalignLabelGenerator(cfg, group=group)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        records = gen.process_dataset(Frames(frames, labels, 30), save=True)
+        torch.cuda.synchronize()
+        return records, time.time() - t0
+
+    # in turns: no group, the group twice, no group
+    plain, t_plain = parity_run("plain", None)
+    env = {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())}
+    os.environ.update(env)
+    try:
+        dist.init_process_group("nccl", init_method="env://", rank=0,
+                                world_size=1)
+        try:
+            grouped, t_group = parity_run("group", dist.group.WORLD)
+            t_group = [t_group, parity_run("group_2", dist.group.WORLD)[1]]
+            backend = dist.get_backend()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+    t_plain = [t_plain, parity_run("plain_2", None)[1]]
+    skip = ("elapsed_time", "out_dir")
+    records_equal = len(plain) == len(grouped) == 30 and all(
+        {k: v for k, v in a.items()
+         if not k.startswith("time_") and k not in skip}
+        == {k: v for k, v in b.items()
+            if not k.startswith("time_") and k not in skip}
+        for a, b in zip(plain, grouped))
+    npys = sorted(f for f in os.listdir(os.path.join(root, "plain"))
+                  if f.endswith(".npy"))
+    maps_equal = len(npys) == 60 and all(
+        np.array_equal(np.load(os.path.join(root, "plain", f)),
+                       np.load(os.path.join(root, "group", f)))
+        for f in npys)
+
+    decoded = {}
+    for fn in CURVES:
+        with open(os.path.join(curves["result_dir"], fn), "rb") as f:
+            decoded[fn] = list(decode_png(f.read()).shape)
+
+    examples = {}
+    for name, module, argv in (
+            ("quickstart", quickstart,
+             ["--workdir", os.path.join(root, "quickstart")]),
+            ("explore", explore,
+             ["--out_dir", os.path.join(root, "explore")])):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.time()
+        got = module.main(argv)
+        torch.cuda.synchronize()
+        examples[name] = {"seconds": time.time() - t0,
+                          "launches": read_counts()}
+        if name == "quickstart":
+            examples[name].update(
+                images=got["images"], iterations=got["iterations"],
+                label_road_iou=got["label_road_iou"],
+                student_road_iou=got["student_road_iou"],
+                stage_seconds=got["seconds"])
+        else:
+            examples[name].update(
+                figures=len(got["paths"]),
+                mean_road_iou=float(np.mean(got["road_iou"])),
+                kmeans_iters=got["kmeans_iters"],
+                unit_seconds=got["seconds"])
+    out = {"phase": "last_gaps", "parity_group": {
+               "backend": backend, "world_size": 1, "images": len(grouped),
+               "seconds_with_group": t_group,
+               "seconds_without_group": t_plain,
+               "order": "without, with, with, without",
+               "records_equal": records_equal,
+               "masks_and_cluster_maps_equal": maps_equal,
+               "npy_files": len(npys),
+               "retries": int(sum(r["retries"] for r in grouped[:1])),
+               "mean_road_iou": float(np.mean([r["road_iou"]
+                                               for r in grouped]))},
+           "curves": {"files": decoded, "step_seconds": curves["seconds"],
+                      "launches": curves["launches"]},
+           "examples": examples}
+    emit(out)
+    check(backend == "nccl", "a one-rank NCCL group")
+    check(records_equal, "parity records under a group equal no group's")
+    check(maps_equal, "parity masks and cluster maps under a group equal")
+    check(all(shape == [480, 640, 3] for shape in decoded.values()),
+          "the four curve PNGs decode at 480x640")
+    check(curves["launches"]["pool2x2"] > 0,
+          "the curve step launched the pooling kernels")
+    qs, ex = examples["quickstart"], examples["explore"]
+    check(np.isfinite(qs["label_road_iou"])
+          and np.isfinite(qs["student_road_iou"]),
+          "quickstart's road IoUs are finite")
+    check(qs["launches"]["slic_lloyd"] > 0 and qs["launches"]["pool2x2"] > 0,
+          "quickstart launched Lloyd and the pooling kernels")
+    check(ex["figures"] == 4 and np.isfinite(ex["mean_road_iou"]),
+          "explore wrote 4 figures with finite road IoU")
+    check(ex["launches"]["slic_lloyd"] > 0, "explore launched Lloyd")
     return out
 
 
@@ -2783,8 +2947,8 @@ def main() -> int:
 
     # --- stage 2: the pooling kernels, then SegNetBasic training
     pool_summary = pooling_phase()
-    train_launches = train_phase(cfg, frames, frames512, labels,
-                                 pool_summary)
+    train_launches, train_curves = train_phase(cfg, frames, frames512,
+                                               labels, pool_summary)
     torch.cuda.empty_cache()
 
     # --- real image files through the label and train CLIs
@@ -2809,9 +2973,16 @@ def main() -> int:
     ranks = several_ranks_phase(cfg, frames, labels, real_paths)
     torch.cuda.empty_cache()
     sweep = sweep_phase(frames, labels)
+    torch.cuda.empty_cache()
+
+    # --- the last gaps against the JAX package: parity over a group, the
+    # training curves, the examples
+    gaps = last_gaps_phase(frames, labels, train_curves)
 
     # launches over every path that runs a kernel, each path's counts set
-    # to 0 just before it and read just after
+    # to 0 just before it and read just after (the dry run's rank: its
+    # process's counts, which start at 0)
+    dry = ranks["dryrun_multichip_1"]
     lloyd_paths = {"main_path": launches,
                    "host_superpixels_path.slic_connectivity":
                    host_sp["slic_connectivity"]["launches"]["slic_lloyd"],
@@ -2823,11 +2994,21 @@ def main() -> int:
                    "diagnostics.label_cli":
                    diag["label_cli"]["launches"]["slic_lloyd"],
                    "several_ranks.spalign":
-                   ranks["spalign"]["launches"]["slic_lloyd"]}
+                   ranks["spalign"]["launches"]["slic_lloyd"],
+                   "several_ranks.dryrun_ranks": dry["rank_launches"][
+                       "slic_lloyd"],
+                   "several_ranks.dryrun_one_rank":
+                   dry["one_rank_launches"]["slic_lloyd"],
+                   "last_gaps.quickstart": gaps["examples"]["quickstart"][
+                       "launches"]["slic_lloyd"],
+                   "last_gaps.explore": gaps["examples"]["explore"][
+                       "launches"]["slic_lloyd"]}
     assign_paths = {
         "overlaps_path": overlaps["launches"],
         "overlaps_felzenszwalb_path.slic_connectivity":
-        overlaps_felz["slic_connectivity"]["launches"]}
+        overlaps_felz["slic_connectivity"]["launches"],
+        "several_ranks.dryrun_ranks": dry["rank_launches"],
+        "several_ranks.dryrun_one_rank": dry["one_rank_launches"]}
     # slic_assign launches in two forms on the overlaps paths (labels once
     # a batch, sums-only n_iter times): its ms, plain_ms and bound_ms are
     # means over the paths' launches, each form weighted by its count
@@ -2880,7 +3061,15 @@ def main() -> int:
                    diag["relabel_cli"]["launches"][name],
                    "several_ranks.relabel":
                    ranks["relabel"]["launches"][name],
-                   "several_ranks.round": ranks["round"]["launches"][name]}
+                   "several_ranks.round": ranks["round"]["launches"][name],
+                   "several_ranks.dryrun_ranks":
+                   dry["rank_launches"][name],
+                   "several_ranks.dryrun_one_rank":
+                   dry["one_rank_launches"][name],
+                   "train_path.curves_step":
+                   train_curves["launches"][name],
+                   "last_gaps.quickstart": gaps["examples"]["quickstart"][
+                       "launches"][name]}
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": POOL_REPLACES[name],

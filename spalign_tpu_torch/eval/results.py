@@ -22,6 +22,9 @@ class ResultWriter:
         os.makedirs(out_dir, exist_ok=True)
         self.path = os.path.join(out_dir, filename)
 
+    def append(self, record: Dict):
+        self.append_many([record])
+
     def append_many(self, records: Iterable[Dict]):
         with open(self.path, "a") as fp:
             for r in records:

@@ -238,6 +238,31 @@ drn_d_38 = _factory(BasicBlock, (1, 1, 3, 4, 6, 3, 1, 1), "D")
 drn_d_54 = _factory(Bottleneck, (1, 1, 3, 4, 6, 3, 1, 1), "D")
 drn_d_105 = _factory(Bottleneck, (1, 1, 3, 4, 23, 3, 1, 1), "D")
 
+def batch_predict(model: DRN, images_rgb_0_255: torch.Tensor,
+                  train: bool = False):
+    """Reference-API convenience (models/drn.py:304-325 batch_predict):
+    (B, H, W, 3) RGB in [0, 255], NHWC on the model's device ->
+    (head_output (B, h, w, classes), middle_maps: the eight stage
+    outputs (B, h_i, w_i, C_i)), all NHWC as ``DRN.forward`` returns
+    them, with the ImageNet normalisation applied inside.  ``train``
+    runs the batch norms on the batch's statistics (and updates their
+    running averages); the model is left in the mode it was in."""
+    was_training = model.training
+    model.train(train)
+    try:
+        with torch.set_grad_enabled(train):
+            return model(preprocess_imagenet(images_rgb_0_255))
+    finally:
+        model.train(was_training)
+
+
+def predict(model: DRN, image_rgb_0_255: torch.Tensor):
+    """Per-image convenience (reference models/drn.py:287-302 predict):
+    one (H, W, 3) RGB [0, 255] image -> ``batch_predict``'s (head_output,
+    middle_maps) of the batch of one, NHWC, in eval mode."""
+    return batch_predict(model, image_rgb_0_255[None], train=False)
+
+
 DRN_FACTORIES = {
     "drn_c_26": drn_c_26, "drn_c_42": drn_c_42, "drn_c_58": drn_c_58,
     "drn_d_22": drn_d_22, "drn_d_38": drn_d_38, "drn_d_54": drn_d_54,

@@ -52,7 +52,12 @@ one rank's shapes, so its result equals a one-rank run's bit for bit;
 each rank then paints, packs, scores and saves its own images, and rank
 0 gathers the records in image order and alone writes ``result.json``.
 The retry of an empty road mask reads the all-gathered per-image flags,
-so every rank decides it alike.
+so every rank decides it alike.  The parity mode replays the reference's
+sequential host streams image by image: each rank computes the features
+and host maps of its rows, all-gathers them, and replays the whole
+group's streams and runs its Lloyd loop as one rank does
+(``run_parity``), so its records, masks and cluster maps are one rank's
+bit for bit.
 
 ``save_images`` writes the 2x2 diagnostic panel of each scored image
 (``utils/viz.py``) under the mask PNG's file name; ``score_full_res`` is
@@ -340,7 +345,7 @@ class LabelGeneratorBase:
       group: a ``torch.distributed`` process group to shard each unit
         over (the JAX package's ``mesh=``; module docstring), one process
         per device, every rank with the same arguments; None (default):
-        one rank.  The parity mode runs on one rank only.
+        one rank.
     """
 
     mode = None  # the cfg.mode the subclass runs
@@ -446,12 +451,6 @@ class LabelGeneratorBase:
                 f"mode={cfg.mode!r}: {type(self).__name__} runs mode="
                 f"{self.mode!r}; make_label_generator picks the generator "
                 f"of a mode")
-        if (self.group is not None and cfg.mode == "spalign"
-                and cfg.kmeans.init == "reference"):
-            raise NotImplementedError(
-                "the parity mode replays the reference's sequential host "
-                "streams image by image and runs on one rank: pass "
-                "group=None")
         if cfg.upload_format == "rgb8":
             return
         if cfg.upload_format != "yuv420":
@@ -864,16 +863,28 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         painting on the device.  Align and prior are cached in
         ``prepared``: a retry re-runs only the init and the Lloyd loop,
         as the reference's retry re-calls only its k-means (:201-205).
-        Returns the device tensors of ``run_unit``."""
+
+        Under a group each rank computes the features and host maps of
+        its own rows; the float32 feature maps, the int32 maps and the
+        counts are all-gathered in rank order, and every rank replays the
+        whole group's streams and runs the Lloyd loop on the whole group,
+        exactly as one rank does, then paints its own rows.  ``ok`` reads
+        every rank's masks, so every rank takes the same retry decision
+        and its streams stay the one rank's.  Returns the device tensors
+        of ``run_unit`` (this rank's rows)."""
         cfg = self.cfg
         s = self.num_segments
-        counts = prepared["counts"]
-        b = len(counts)
         if "parity" not in prepared:
             with timers.stage("features", self.device):
-                fmaps = self.features(self.decode(prepared["wire"])).to(
-                    torch.float32).cpu().numpy()
-            sps_host = prepared["sps_host"]
+                fmaps = pdist.all_gather(self.features(self.decode(
+                    prepared["wire"])).to(torch.float32), self.group)
+                fmaps = fmaps.cpu().numpy()
+            sps_host, counts = prepared["sps_host"], prepared["counts"]
+            if self.group is not None:
+                sps_host, counts = (pdist.all_gather(torch.from_numpy(
+                    np.ascontiguousarray(a, np.int32)).to(self.device),
+                    self.group).cpu().numpy() for a in (sps_host, counts))
+            b = len(counts)
             with timers.stage("align"):
                 feats_c = [reference_superpixel_align(
                     fmaps[i], sps_host[i], self._parity_pyrng,
@@ -896,8 +907,9 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                 torch.from_numpy(feats).to(self.device).reshape(1, b * s, -1),
                 torch.from_numpy(prior).to(self.device).reshape(1, b * s),
                 torch.from_numpy(valid).to(self.device).reshape(1, b * s),
-                np.concatenate(prior_c))
-        feats, prior, valid, prior_cat = prepared["parity"]
+                np.concatenate(prior_c), counts)
+        feats, prior, valid, prior_cat, counts = prepared["parity"]
+        b = len(counts)
         a_cat = reference_seed_assignment(prior_cat, cfg.kmeans.n_clusters,
                                           self._parity_rng)
         assign0 = np.full((b, s), -1, np.int32)
@@ -912,10 +924,12 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                 k=cfg.kmeans.n_clusters, n_iter=cfg.kmeans.n_iter,
                 check_every=KMEANS_CHECK_EVERY)
             sps = prepared["sps"].to(torch.int32)
-            assign = res.assignment.reshape(b, s)
+            assign = pdist.local_rows(res.assignment.reshape(b, s),
+                                      self.group)
             cluster = paint_clusters(sps, assign)
             road = cluster == 0
-            ok = road.flatten(1).any(1).all().reshape(1)
+            ok = pdist.all_gather(road.flatten(1).any(1),
+                                  self.group).all().reshape(1)
         return {"road": road, "road_packed": pack_mask_bits(road),
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}

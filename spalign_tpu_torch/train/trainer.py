@@ -11,8 +11,8 @@ every global batch; batch norm sees the global batch, the ``ce`` loss
 divides by the global valid count, and one all-reduce a step averages
 the flattened gradients (and the loss) before the optimizer, so an
 N-rank step is the one-device step of the JAX package.  At world size 1
-nothing is reduced.  Rank 0 alone writes ``args.txt``, the logs and the
-snapshots.
+nothing is reduced.  Rank 0 alone writes ``args.txt``, the logs, the
+training curves and the snapshots.
 
 Optimizers match the reference recipes (train_segnet.py:230-240, 260-263):
 Adam (the README recipe; chainer's and optax's defaults, lr 1e-3) or
@@ -35,6 +35,7 @@ from spalign_tpu_torch.config import TrainConfig
 from spalign_tpu_torch.models.segnet import build_segnet
 from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.train.losses import rank_loss_fn
+from spalign_tpu_torch.utils.curves import write_curves
 from spalign_tpu_torch.utils.device import full_float32
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
@@ -177,8 +178,10 @@ class Trainer:
         (B, H, W, 3) float32, labels) host arrays: this rank's rows of
         each global batch (``PrefetchLoader(rank=, world=)``), the whole
         batch at world size 1.  ``evaluator(model)`` returns a metrics
-        dict (every rank calls it); ``checkpointer(step, state_dict)``
-        runs on rank 0."""
+        dict (every rank calls it); after it, rank 0 draws the training
+        curves (``utils/curves.py``: loss.png, ious.png, prerec.png,
+        accuracy.png) into cfg.result_dir.  ``checkpointer(step,
+        state_dict)`` runs on rank 0."""
         cfg = self.cfg
         fit_t0, fit_step0 = time.time(), self.step
         for images, labels in train_iter:
@@ -205,6 +208,8 @@ class Trainer:
                     ev = evaluator(self.model)
                     self._report({"iteration": step,
                                   **{f"val/{k}": v for k, v in ev.items()}})
+                    if self.rank == 0:
+                        write_curves(self._log, cfg.result_dir)
                 if checkpointer is not None and self.rank == 0:
                     checkpointer(step, self.state_dict())
                 self._flush_log()

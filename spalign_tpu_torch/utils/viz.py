@@ -86,6 +86,36 @@ _GLYPHS = {
     "(": "...#.|..#..|.#...|.#...|.#...|..#..|...#.",
     ")": ".#...|..#..|...#.|...#.|...#.|..#..|.#...",
     " ": ".....|.....|.....|.....|.....|.....|.....",
+    # for the training curves' ticks and series keys (utils/curves.py)
+    # and the titles of the examples' stage figures
+    "b": "#....|#....|#.##.|##..#|#...#|#...#|####.",
+    "f": "..##.|.#..#|.#...|###..|.#...|.#...|.#...",
+    "g": ".....|.....|.####|#...#|.####|....#|.###.",
+    "j": "...#.|.....|..##.|...#.|...#.|#..#.|.##..",
+    "w": ".....|.....|#...#|#...#|#.#.#|#.#.#|.#.#.",
+    "x": ".....|.....|#...#|.#.#.|..#..|.#.#.|#...#",
+    "C": ".###.|#...#|#....|#....|#....|#...#|.###.",
+    "I": ".###.|..#..|..#..|..#..|..#..|..#..|.###.",
+    "L": "#....|#....|#....|#....|#....|#....|#####",
+    "S": ".####|#....|#....|.###.|....#|....#|####.",
+    "T": "#####|..#..|..#..|..#..|..#..|..#..|..#..",
+    "=": ".....|.....|#####|.....|#####|.....|.....",
+    "p": ".....|.....|####.|#...#|####.|#....|#....",
+    "/": ".....|....#|...#.|..#..|.#...|#....|.....",
+    "_": ".....|.....|.....|.....|.....|.....|#####",
+    ".": ".....|.....|.....|.....|.....|.##..|.##..",
+    "-": ".....|.....|.....|.###.|.....|.....|.....",
+    "+": ".....|..#..|..#..|#####|..#..|..#..|.....",
+    "0": ".###.|#...#|#..##|#.#.#|##..#|#...#|.###.",
+    "1": "..#..|.##..|..#..|..#..|..#..|..#..|.###.",
+    "2": ".###.|#...#|....#|...#.|..#..|.#...|#####",
+    "3": "#####|...#.|..#..|...#.|....#|#...#|.###.",
+    "4": "...#.|..##.|.#.#.|#..#.|#####|...#.|...#.",
+    "5": "#####|#....|####.|....#|....#|#...#|.###.",
+    "6": "..##.|.#...|#....|####.|#...#|#...#|.###.",
+    "7": "#####|....#|...#.|..#..|.#...|.#...|.#...",
+    "8": ".###.|#...#|#...#|.###.|#...#|#...#|.###.",
+    "9": ".###.|#...#|#...#|.####|....#|...#.|.##..",
 }
 
 OVERLAY_TITLE = "Estimated road mask (overlay)"

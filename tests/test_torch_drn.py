@@ -86,3 +86,35 @@ def test_random_init_is_seeded():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
+
+
+@pytest.mark.parametrize("single", [False, True], ids=["batch", "single"])
+def test_batch_predict_and_predict_match_flax(single):
+    """``batch_predict`` / ``predict`` (ImageNet normalisation inside, eval
+    mode) against the JAX package's on the same weights: the head and
+    every stage map within the converter's bar, NHWC both."""
+    from spalign_tpu.models.drn import batch_predict as flax_batch_predict
+    from spalign_tpu.models.drn import predict as flax_predict
+    from spalign_tpu_torch.models.drn import batch_predict, predict
+
+    hw = (32, 32)
+    model, variables = _flax_variables("drn_d_22", hw)
+    x = np.random.RandomState(4).randint(0, 256, (2, *hw, 3)).astype(
+        np.float32)
+    port = DRN_FACTORIES["drn_d_22"](device="cpu")
+    port.load_state_dict(drn_state_dict_from_flax(variables, arch="D"),
+                         strict=True)
+    if single:
+        want = flax_predict(model, variables, jnp.asarray(x[0]))
+        got = predict(port, torch.from_numpy(x[0]))
+    else:
+        want = flax_batch_predict(model, variables, jnp.asarray(x))
+        got = batch_predict(port, torch.from_numpy(x))
+    assert not port.training and not got[0].requires_grad
+    pairs = [(got[0], want[0])] + list(zip(got[1], want[1]))
+    assert len(pairs) == 9
+    for t, f in pairs:
+        f = np.asarray(f)
+        assert tuple(t.shape) == f.shape and f.shape[0] == (1 if single
+                                                            else 2)
+        assert np.abs(t.numpy() - f).max() <= 1e-4 * np.abs(f).max()

@@ -4,7 +4,9 @@ package's ``entry()`` (the flax DRN-C-26's stage-8 map of its example
 images; the weights initialised under jit, as ``entry()``'s un-jitted
 init takes ~25 s on the CPU) on the same weights, and
 ``dryrun_multichip`` on gloo CPU ranks, in this process and in a cold
-subprocess (tests/test_graft_entry.py's pair).
+subprocess (tests/test_graft_entry.py's pair): each of its five parts
+(the train step, the cluster path, the fused SLIC path, the direct and
+overlaps generators, two self-training rounds).
 
 Tolerance: the stage-8 map within 1e-4 of its largest |value| in float32
 (the converter's bar, tests/test_torch_drn.py).  The dry run holds its
@@ -53,8 +55,27 @@ def test_entry_forward_equals_jax():
 
 
 def test_dryrun_multichip_2():
+    """Each of the JAX dry run's five parts ran over 2 ranks and held to
+    one rank (the rounds to JAX's checks)."""
     out = dryrun_multichip(2, device="cpu")
-    assert out["ranks"] == 2 and np.isfinite(out["loss"])
+    assert out["ranks"] == 2 and out["device"] == "cpu"
+    step = out["train_step"]
+    assert np.isfinite(step["loss"]) and np.isfinite(step["grad_norm"])
+    for part in ("cluster", "fused_slic"):
+        assert out[part]["masks_equal"] and out[part]["shape"] == [2, 32, 32]
+    for part in ("direct", "overlaps"):
+        assert out[part]["masks_equal"] and out[part]["images"] == 2
+        assert np.isfinite(out[part]["road_iou"])
+    rounds = out["rounds"]
+    assert rounds["rounds"] == 2 and len(rounds["losses"]) == 2
+    assert all(np.isfinite(rounds["losses"]))
+    assert rounds["losses"][0] != rounds["losses"][-1]
+    assert rounds["final_zip"] == "iter-4_eval-train.0.zip"
+    for part in ("train_step", "cluster", "fused_slic", "direct",
+                 "overlaps", "rounds"):
+        assert out[part]["seconds"] > 0, part
+    # the CPU runs the kernels' plain versions: no launch in any rank
+    assert set(out["rank_launches"].values()) == {0}
 
 
 def test_dryrun_multichip_cold_process():
@@ -68,3 +89,6 @@ def test_dryrun_multichip_cold_process():
         cwd=ROOT, env=env, capture_output=True, text=True, timeout=600)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "dryrun_multichip(2): ok" in proc.stdout
+    for part in ("train_step", "cluster", "fused_slic", "direct",
+                 "overlaps", "rounds"):
+        assert f"  {part}: ok" in proc.stdout, part

@@ -245,25 +245,31 @@ def test_downscaled_superpixels_run(pair):
 
 @pytest.mark.parametrize("change", [
     dict(mode="direct"),
-    # the parity mode over a process group (here a one-rank gloo group):
-    # it replays the reference's sequential host streams on one rank.
-    # (save_images, which raised here before, is ported:
-    # tests/test_torch_diagnostics.py)
-    dict(kmeans=tcfg.KMeansConfig(init="reference"))])
-def test_unported_paths_raise(change, tmp_path):
+    # the parity mode over a process group (here a one-rank gloo group),
+    # refused here until it sharded: it now runs, equal to no group
+    # (2 ranks: tests/test_torch_sharded.py).  (save_images, which
+    # raised here before that, is ported: tests/test_torch_diagnostics.py)
+    dict(kmeans=tcfg.KMeansConfig(init="reference"), upload_format="rgb8")])
+def test_unported_paths_raise(change, tmp_path, pair):
     cfg = dataclasses.replace(_port_cfg(), **change)
     if "mode" in change:
         with pytest.raises(NotImplementedError):
             tlg.SpalignLabelGenerator(cfg, device="cpu")
         return
+    *_, sd, ds = pair
+    imgs = ds.resized_batch(range(B), HW)[0]
+    want = tlg.SpalignLabelGenerator(cfg, state_dict=sd,
+                                     device="cpu").run_batch(imgs)
     tdist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
                              rank=0, world_size=1)
     try:
-        with pytest.raises(NotImplementedError, match="one rank"):
-            tlg.SpalignLabelGenerator(cfg, device="cpu",
-                                      group=tdist.group.WORLD)
+        got = tlg.SpalignLabelGenerator(
+            cfg, state_dict=sd, device="cpu",
+            group=tdist.group.WORLD).run_batch(imgs)
     finally:
         tdist.destroy_process_group()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert got[2] == want[2]
 
 
 def _to_jax(cfg):

@@ -7,9 +7,10 @@ The ranks are spawned once for the module (torch.multiprocessing, a
 file:// rendezvous) and run every scenario in one group.  Bars:
   * label generation (spalign with device SLIC, the JAX test's
     configuration at 112^2 and a unit of 2 groups; spalign with
-    felzenszwalb; direct; overlaps): the JAX test's bar, road IoU rtol
-    1e-6 and TP / FP equal, and the saved masks, cluster maps and
-    diagnostic panels equal;
+    felzenszwalb, and in the parity mode; direct; overlaps): the JAX
+    test's bar, road IoU rtol 1e-6 and TP / FP equal, every other field
+    of the records but the host clocks equal, and the saved masks,
+    cluster maps and diagnostic panels equal;
   * relabel: the zip's members byte-equal, the records equal, the
     panels equal (7 images in batches of 4: the tail batch is padded);
   * one round: the data-parallel step's bar of tests/test_torch_ddp.py
@@ -62,6 +63,13 @@ LABEL_RUNS = {
         batchsize=8, resize_shape=(56, 56),
         superpixel=SuperpixelConfig(felzenszwalb_scale=100.0,
                                     max_superpixels=256)),
+    # the parity mode (felzenszwalb, float32 DRN): every rank replays
+    # the whole group's reference streams
+    "spalign_parity": LabelGenConfig(
+        batchsize=8, resize_shape=(56, 56),
+        superpixel=SuperpixelConfig(felzenszwalb_scale=100.0,
+                                    max_superpixels=256),
+        kmeans=KMeansConfig(init="reference")),
     "direct": LabelGenConfig(mode="direct", batchsize=8,
                              resize_shape=(56, 56)),
     "overlaps": LabelGenConfig(
@@ -128,12 +136,6 @@ def _scenarios(base, group, sources):
                                  group=group).process_dataset(ds)
         except ValueError as e:
             out["indivisible"] = str(e)
-        try:
-            make_label_generator(
-                LabelGenConfig(kmeans=KMeansConfig(init="reference")),
-                device="cpu", group=group)
-        except NotImplementedError as e:
-            out["parity"] = str(e)
     out["relabel"] = relabel_dataset(
         build_segnet("basic", 2, device="cpu"), None,
         RelabelView(N_RELABEL), os.path.join(base, "relabel.0.zip"),
@@ -237,11 +239,10 @@ def test_panels_written_in_the_gt_mode(runs):
     assert not _files(os.path.join(tmp, "ranks", "direct"), "*.png")
 
 
-def test_indivisible_unit_and_parity_refused(runs):
+def test_indivisible_unit_refused(runs):
     _, ranks, _ = runs
     for r in ranks:
         assert "not divisible by the 2-device" in r["indivisible"]
-        assert "one rank" in r["parity"]
 
 
 def test_relabel_two_ranks_equal_one(runs):
