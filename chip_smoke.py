@@ -18,8 +18,10 @@ Run from the root of the repository on a machine with one CUDA GPU and
                together; ptxas's resource use per kernel
   slic_lloyd   the SLIC Lloyd kernel against its plain PyTorch version on
                the inputs the main path gives it (150 x 224^2, 100
-               segments, 10 sweeps): labels bit-equal; its cluster size;
-               times by CUDA events
+               segments, 10 sweeps) and at every other shape it launches
+               at on the sweep's fig 8 (units of 5 to 160 images) and in
+               the bench (slic_d2's 150 x 112^2, slic_cc's 30 x 224^2):
+               labels bit-equal; its cluster size; times by CUDA events
   main_path    SpalignLabelGenerator at the bench configuration (DRN-C-26
                full width in bf16, 5 groups x 30 images per unit, yuv420
                wire, k=4, 10 anchors) over synthetic scenes with ground
@@ -29,8 +31,12 @@ Run from the root of the repository on a machine with one CUDA GPU and
   slic_assign  the SLIC assignment kernel (csrc/slic_assign.cu) against its
                plain version at the overlaps path's inputs (30 frames at
                1024x2048, K = 98) with the grid centres and with the centres
-               after 3 sweeps, at K = 990 on 2 frames, on a ragged H*W and
-               with every window empty: labels bit-equal and the fused
+               after 3 sweeps, at K = 1,035 (bench.py's overlaps_slic: 8
+               frames at 512x1024) and K = 4,095 (2 frames at 1024x2048),
+               each timed with its bounds, at K = 990 on 2 frames, on a
+               ragged H*W, with every window empty and with every centre
+               packed into one corner (tiles past the kernel's stage):
+               labels bit-equal and the fused
                int64 centre sums equal to bincount's; the labelled and the
                sums-only launch timed beside their plain versions, their
                bounds and the sums' yardsticks (bincount, index_add_); the
@@ -162,8 +168,9 @@ Run from the root of the repository on a machine with one CUDA GPU and
                finite and moving); each part's seconds, the launches of
                every kernel in the rank and in this process
   sweep        cli.sweep in-process on main_path's frames, one unit of 150
-               a value: fig 7 (k = 2..8) on the device-SLIC unit (the
-               Lloyd kernel must launch) and fig 9's felzenszwalb scale at
+               a value: fig 7 (k = 2..8) and fig 8 (clustering batch 1..50)
+               on the device-SLIC unit (the Lloyd kernel must launch) and
+               fig 9's felzenszwalb scale at
                100, 300, 800 on the default unit, images/s and road IoU a
                value; then one dynamic-k generator against fresh static
                generators on the same seed stream at k = 2 and 8: equal
@@ -175,6 +182,11 @@ Run from the root of the repository on a machine with one CUDA GPU and
                prerec, accuracy) that train_path's evaluation step drew,
                decoded back; the quickstart and explore examples at their
                defaults on the card: seconds, road IoU, kernel launches
+  bench        every mode of ``python -m spalign_tpu_torch.bench --mode
+               all`` through the bench module's functions, in its order, at
+               bench.py's sizes cut to one repetition each (its warm-up pass
+               kept): each mode's row with the launches of every kernel,
+               counts set to 0 just before the mode and read just after
 
 then the ``kernels`` line, the nvidia-smi line, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failed phase raises: the script
@@ -203,6 +215,9 @@ N_SCENES = 30
 N_FULL_SCENES = 15  # at 1024x2048, with their mirror images: 30 frames
 FULL_HW = (1024, 2048)
 UNIT = 150  # 5 groups x 30 images
+SWEEP_GROUPS = 5  # clustering batches a unit in sweep_phase
+# the bench modes that launch the Lloyd kernel
+BENCH_LLOYD_MODES = ("slic", "slic_scored", "slic_d2", "slic_cc")
 OVERLAPS_BATCHES = 3
 # the SegNetBasic train step's pooling levels (B, H, W, C) at 512x1024
 POOL_LEVELS = [(8, 512 >> i, 1024 >> i, 64) for i in range(4)]
@@ -376,6 +391,98 @@ def lloyd_bound_ms(lab, c0, shape, n_iter):
     pairs = int(in_win.sum()) * b
     n_ops = (n_iter + 1) * pairs * 10 + n_iter * b * hw * 6
     return (*bound_ms(n_bytes, n_ops), n_bytes, n_ops)
+
+
+def lloyd_case(images, sp):
+    """The Lloyd kernel against its plain version on (B, H, W, 3) images
+    with ``sp``'s segments and sweeps: labels bit-equal and in [0, K),
+    its cluster size, kernel and plain times by CUDA events, its bound."""
+    import torch
+
+    from spalign_tpu_torch.kernels import slic_fused
+    from spalign_tpu_torch.kernels.slic import slic_inputs
+
+    b, h, w, _ = images.shape
+    lab, c0, shape = slic_inputs(images, sp.n_slic_segments,
+                                 sp.slic_compactness)
+    kw = dict(shape, n_iter=sp.slic_iters)
+    got = slic_fused.slic_lloyd(lab, c0, **kw)
+    want = slic_fused.slic_lloyd_reference(lab, c0, **kw)
+    torch.cuda.synchronize()
+    k = c0.shape[1]
+    kernel_ms, kernel_runs = cuda_ms(
+        lambda: slic_fused.slic_lloyd(lab, c0, **kw), reps=20)
+    plain_ms, _ = cuda_ms(
+        lambda: slic_fused.slic_lloyd_reference(lab, c0, **kw), reps=3,
+        warmup=1)
+    bound, by, n_bytes, n_ops = lloyd_bound_ms(lab, c0, shape,
+                                               sp.slic_iters)
+    return {"images": b, "hw": [h, w], "centres": k,
+            "sweeps": sp.slic_iters,
+            "cluster": slic_fused.cluster_size(b, h, w),
+            "max_abs_err": int((got.long() - want.long()).abs().max()),
+            "labels_in_range": bool(((got >= 0) & (got < k)).all()),
+            "kernel_ms": kernel_ms, "kernel_runs_ms": kernel_runs,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "bytes": n_bytes, "operations": n_ops}
+
+
+def fig8_lloyd_units():
+    """{images a launch: launches} of sweep_phase's fig 8 run: for each
+    clustering batch of the grid, one unit of UNIT images in batches of
+    that size (the tail batch overlapping its predecessor), SWEEP_GROUPS
+    batches a Lloyd launch."""
+    from collections import Counter
+
+    from spalign_tpu_torch.cli.sweep import FIG_GRIDS
+    from spalign_tpu_torch.pipeline.label_gen import batch_slices
+
+    units = Counter()
+    for bs in FIG_GRIDS["fig8"][1]:
+        s = batch_slices(0, UNIT, bs)
+        for x in range(0, len(s), SWEEP_GROUPS):
+            units[sum(j - i for i, j in s[x:x + SWEEP_GROUPS])] += 1
+    return dict(units)
+
+
+def bench_lloyd_shape(mode):
+    """(images, H, W) of every Lloyd launch of a bench label mode: one
+    unit of batchsize x groups images at the SLIC maps' resolution."""
+    from spalign_tpu_torch import bench
+
+    cfg = bench.label_gen_cfg(mode)
+    d = cfg.superpixel.slic_device_downscale
+    h, w = cfg.resize_shape
+    return cfg.batchsize * max(1, cfg.groups_per_dispatch), h // d, w // d
+
+
+def lloyd_shapes(hw):
+    """Every (images, H, W) that the Lloyd kernel launches at on the
+    paths that the kernels line weighs by shape, the main path's (UNIT
+    images at ``hw``) first, then fig 8's units and bench's label modes.
+    The paths of earlier slices are counted at the main path's shape."""
+    shapes = [(UNIT, *hw)]
+    shapes += [(n, *hw) for n in sorted(fig8_lloyd_units())]
+    shapes += [bench_lloyd_shape(m) for m in BENCH_LLOYD_MODES]
+    return list(dict.fromkeys(shapes))
+
+
+def lloyd_images(images, n, h, w):
+    """``n`` of the main path's decoded images at (h, w): cycled, and
+    averaged over d x d blocks for the device-SLIC downscale d as
+    ``SpalignLabelGenerator.superpixels`` does."""
+    import torch
+
+    imgs = images[torch.arange(n, device=images.device) % len(images)]
+    d = imgs.shape[1] // h
+    if d > 1:
+        imgs = imgs.to(torch.float32).reshape(n, h, d, w, d, 3).mean(
+            dim=(2, 4))
+    return imgs
+
+
+def shape_name(shape):
+    return "x".join(map(str, shape))
 
 
 def window_pairs(centers, shape):
@@ -859,10 +966,11 @@ def sums_bound_ms(lab, centers, shape):
 
 
 def slic_assign_phase(frames_full, frames512, sp):
-    """The assignment kernel at the overlaps path's inputs, K ~ 1000, a
-    ragged H*W and empty windows, labels and fused sums; the centre sums'
-    yardsticks; the whole per-sweep SLIC and its split;
-    the two engines at 30 x 512x1024."""
+    """The assignment kernel at the overlaps path's inputs, at K = 1,035
+    and 4,095, K ~ 1000 on a ragged H*W, with empty windows and with
+    centres packed past the stage, labels and fused sums; the centre
+    sums' yardsticks; the whole per-sweep SLIC and its split; the two
+    engines at 30 x 512x1024."""
     import torch
 
     from spalign_tpu_torch import native
@@ -934,18 +1042,38 @@ def slic_assign_phase(frames_full, frames512, sp):
     del lab, c0, c3, labels, images
     torch.cuda.empty_cache()
 
+    # past one TPU block's 1024 centres: bench.py's overlaps_slic shapes
+    # (8 frames at half resolution, 1024 segments: K = 1,035), and 2 full
+    # frames at 4096 segments (K = 4,095), each with its times and bounds
+    large = {
+        "k1035": large_k_case(torch.from_numpy(np.ascontiguousarray(
+            frames_full[:8, ::2, ::2])).to(dev), 1024, comp, 5),
+        "k4095": large_k_case(torch.from_numpy(frames_full[:2]).to(dev),
+                              4096, comp, 2)}
+    for name, case in large.items():
+        checks.update({f"{name}_{c}": v for c, v in case.pop("checks")})
+
     # K = 990 on 2 frames, a ragged H*W, every window empty
     images = torch.from_numpy(frames_full[:2, :1000, :1998]).to(dev)
     lab, c0, kshape = slic_inputs(images, 1000, comp)
     far = c0.clone()
     far[..., 3] += 10 * kshape["height"]
     c2 = sweeps(c0, 2, kshape)
+    # every centre in the top-left 48 x 48 pixels of a 160x200 crop: tiles
+    # there hold more survivors than a block stages (sa.STAGE_CAP)
+    images = images[:, :160, :200].contiguous()
+    plab, pc, pshape = slic_inputs(images, 1000, comp)
+    pc[..., 3] *= 48.0 / 160
+    pc[..., 4] *= 48.0 / 200
+    packed_most = int(sa.tile_candidates(pc, 160, 200, sa.TILE,
+                                         pshape["window"]).sum(-1).max())
     checks.update({"k990_ragged_grid": assign_check(lab, c0, kshape),
                    "k990_ragged_after_2_sweeps": assign_check(lab, c2,
                                                               kshape),
-                   "empty_windows": assign_check(lab, far, kshape)})
+                   "empty_windows": assign_check(lab, far, kshape),
+                   "packed_past_the_stage": assign_check(plab, pc, pshape)})
     k990 = c0.shape[1]
-    del lab, c0, c2, far, images
+    del lab, c0, c2, far, images, plab, pc
     torch.cuda.empty_cache()
 
     # the two engines where the Lloyd kernel takes the shape
@@ -983,6 +1111,8 @@ def slic_assign_phase(frames_full, frames512, sp):
            "per_sweep_slic_ms": slic_ms,
            "per_sweep_split_ms": split,
            "per_sweep_peak_memory_bytes": slic_peak,
+           "large_k": large, "stage_cap": sa.STAGE_CAP,
+           "packed_most_survivors": packed_most,
            "engines_512x1024": {"images": 30, "max_abs_err": engines_err,
                                 "lloyd_ms": lloyd_ms,
                                 "lloyd_bound_ms": lloyd_least,
@@ -997,6 +1127,54 @@ def slic_assign_phase(frames_full, frames512, sp):
         check(sums_equal, f"fused sums equal bincount's: {name}")
     check(engines_err == 0, "per-sweep engine equals the Lloyd kernel")
     check(same_sums, "fused, index_add_ and bincount sums agree")
+    check(packed_most > sa.STAGE_CAP, f"the packed case overflows the "
+          f"stage: {packed_most} survivors")
+    check(all(c["most_survivors"] <= sa.STAGE_CAP for c in large.values()),
+          "the large-K cases run the staged path")
+    return out
+
+
+def large_k_case(images, n_seg, comp, n_sweeps):
+    """The assignment kernel at a K past 1024: labels and fused sums
+    against the plain version on the grid centres and after ``n_sweeps``
+    sweeps, then the labelled and the sums-only launch on the swept
+    centres timed beside their plain versions and bounds, and the most
+    centres a tile stages."""
+    import torch
+
+    from spalign_tpu_torch.kernels import slic_assign as sa
+    from spalign_tpu_torch.kernels.slic import slic_inputs
+
+    lab, c0, shape = slic_inputs(images, n_seg, comp)
+    c = c0
+    for _ in range(n_sweeps):
+        c = sa.centers_from_sums(sa.slic_assign(lab, c, sums=True, **shape),
+                                 c)
+    checks = [("grid", assign_check(lab, c0, shape)),
+              (f"after_{n_sweeps}_sweeps", assign_check(lab, c, shape))]
+    rows = sa.pixel_rows(lab, shape["width"])
+    least, by = assign_bound_ms(lab, c, shape)[:2]
+    sums_least, sums_by = sums_bound_ms(lab, c, shape)[:2]
+    out = {
+        "images": len(images), "hw": list(images.shape[1:3]),
+        "centres": c0.shape[1], "sweeps": n_sweeps, "checks": checks,
+        "kernel_ms": cuda_ms(lambda: sa.slic_assign(lab, c, **shape),
+                             reps=20)[0],
+        "sums_ms": cuda_ms(lambda: sa.slic_assign(lab, c, sums=True,
+                                                  **shape), reps=20)[0],
+        "plain_ms": cuda_ms(lambda: sa.slic_assign_reference(lab, c,
+                                                             **shape),
+                            reps=1, warmup=0)[0],
+        "sums_plain_ms": cuda_ms(lambda: sa.center_sums(
+            rows, sa.slic_assign_reference(lab, c, **shape), c), reps=1,
+            warmup=0)[0],
+        "bound_ms": least, "bound_by": by, "sums_bound_ms": sums_least,
+        "sums_bound_by": sums_by,
+        "most_survivors": int(sa.tile_candidates(
+            c, shape["height"], shape["width"], sa.TILE,
+            shape["window"]).sum(-1).max())}
+    del lab, c0, c, rows
+    torch.cuda.empty_cache()
     return out
 
 
@@ -2118,9 +2296,16 @@ def workflow_phase(paths):
     return out
 
 
+DEVICE_SLIC_FLAGS = ("--superpixel_method", "slic", "--slic_no_connectivity",
+                     "--n_slic_segments", "100", "--max_superpixels", "256",
+                     "--upload_format", "yuv420")
+
+
 def sweep_phase(frames, labels):
     """cli/sweep.py in-process on main_path's frames, one unit a value:
-    fig 7 (k = 2..8) on the device-SLIC unit, which launches the Lloyd
+    fig 7 (k = 2..8) and fig 8 (clustering batch 1..50: a unit of 150
+    images in batches of the value, the tail batch overlapping its
+    predecessor) on the device-SLIC unit, which launches the Lloyd
     kernel, and fig 9's felzenszwalb scale at 100, 300 and 800 on the
     default unit; then a dynamic-k generator against fresh static ones
     on one seed stream, k = 2 and 8."""
@@ -2128,7 +2313,8 @@ def sweep_phase(frames, labels):
 
     from spalign_tpu_torch.cli import sweep as sweep_cli
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
-    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+    from spalign_tpu_torch.pipeline.label_gen import (SpalignLabelGenerator,
+                                                      batch_slices)
 
     work = tempfile.mkdtemp(prefix="chip_smoke_sweep_")
     dataset = Frames(frames, labels, UNIT)
@@ -2138,9 +2324,9 @@ def sweep_phase(frames, labels):
     try:
         for name, flags in (
                 ("fig7_device_slic",
-                 ["--grid", "fig7", "--superpixel_method", "slic",
-                  "--slic_no_connectivity", "--n_slic_segments", "100",
-                  "--max_superpixels", "256", "--upload_format", "yuv420"]),
+                 ["--grid", "fig7", *DEVICE_SLIC_FLAGS]),
+                ("fig8_device_slic",
+                 ["--grid", "fig8", *DEVICE_SLIC_FLAGS]),
                 ("fig9_felzenszwalb",
                  ["--grid", "custom", "--param",
                   "superpixel.felzenszwalb_scale", "--values", "100", "300",
@@ -2149,7 +2335,8 @@ def sweep_phase(frames, labels):
             reset_counts()
             t0 = time.time()
             rows = sweep_cli.main(flags + [
-                "--batchsize", "30", "--groups_per_dispatch", "5",
+                "--batchsize", "30", "--groups_per_dispatch",
+                str(SWEEP_GROUPS),
                 "--sweep_out", os.path.join(work, f"{name}.csv"),
                 "--out_dir", os.path.join(work, name), "--device", "cuda"])
             torch.cuda.synchronize()
@@ -2183,12 +2370,20 @@ def sweep_phase(frames, labels):
     out = {"phase": "sweep", "grids": grids,
            "dynamic_equals_static": dynamic_equal}
     emit(out)
-    fig7 = grids["fig7_device_slic"]
+    fig7, fig8 = grids["fig7_device_slic"], grids["fig8_device_slic"]
     check([r["value"] for r in fig7["rows"]] == list(range(2, 9))
-          and all(r["images"] == UNIT for g in grids.values()
-                  for r in g["rows"]), "one unit a value")
+          and all(r["images"] == UNIT for name, g in grids.items()
+                  if name != "fig8_device_slic" for r in g["rows"]),
+          "one unit a value")
+    check([r["value"] for r in fig8["rows"]] == sweep_cli.FIG_GRIDS[
+        "fig8"][1] and all(r["images"] == sum(
+            j - i for i, j in batch_slices(0, UNIT, r["value"]))
+            for r in fig8["rows"]), "fig 8: a unit of 150 in its batches")
     check(fig7["launches"]["slic_lloyd"] >= len(fig7["rows"]),
           f"fig 7 launched the Lloyd kernel: {fig7['launches']}")
+    check(fig8["launches"]["slic_lloyd"]
+          == sum(fig8_lloyd_units().values()),
+          f"fig 8 launched the Lloyd kernel once a unit: {fig8['launches']}")
     check(all(np.isfinite(r["road_iou"]) for g in grids.values()
               for r in g["rows"]), "finite road IoU")
     check(all(dynamic_equal.values()), f"dynamic k equals static k on the "
@@ -2791,6 +2986,41 @@ def last_gaps_phase(frames, labels, curves):
     return out
 
 
+def bench_phase():
+    """Every mode of ``spalign_tpu_torch.bench``'s ``--mode all`` at one
+    repetition (bench.py's batches, warm-up pass and data otherwise),
+    counts set to 0 just before each mode and read just after."""
+    import torch
+
+    from spalign_tpu_torch import bench
+
+    rows, launches = {}, {}
+    t0 = time.time()
+    for mode in bench.MODES:
+        torch.cuda.synchronize()
+        reset_counts()
+        rows[mode] = bench.run_mode(mode, reps=1)
+        torch.cuda.synchronize()
+        launches[mode] = read_counts()
+    out = {"phase": "bench", "cut": "one repetition a mode",
+           "device": bench.card()[0], "power_limit_w": bench.card()[1],
+           "rows": rows, "launches": launches,
+           "seconds": time.time() - t0}
+    emit(out)
+    check(list(rows) == list(bench.MODES), "every mode of --mode all")
+    check(all(np.isfinite(r["value"]) and r["value"] > 0
+              for r in rows.values()), "finite rows")
+    lloyd, pools = ("slic_lloyd",), ("pool2x2", "scatter2x2", "gather2x2")
+    want = {"slic": lloyd, "slic_scored": lloyd, "slic_d2": lloyd,
+            "slic_cc": lloyd, "overlaps_slic": ("slic_assign",
+                                                "slic_assign_sums"),
+            "relabel": pools[:2], "train": pools, "train_bf16": pools}
+    for mode, kernels in want.items():
+        check(all(launches[mode][k] > 0 for k in kernels),
+              f"bench {mode} launched {kernels}: {launches[mode]}")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2800,7 +3030,6 @@ def main() -> int:
     from spalign_tpu_torch import native
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
     from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
-    from spalign_tpu_torch.kernels.slic import slic_inputs
     from spalign_tpu_torch.models.drn import (DRN_FACTORIES,
                                               preprocess_imagenet)
     from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
@@ -2843,35 +3072,24 @@ def main() -> int:
     unit = frames[np.arange(UNIT) % len(frames)]
     wire = torch.from_numpy(native.pack_yuv420(unit)).to(dev)
     images = decode_yuv420(wire, cfg.resize_shape)
-    lab, c0, shape = slic_inputs(images, sp.n_slic_segments,
-                                 sp.slic_compactness)
-    kw = dict(shape, n_iter=sp.slic_iters)
-    got = slic_fused.slic_lloyd(lab, c0, **kw)
-    torch.cuda.synchronize()
-    want = slic_fused.slic_lloyd_reference(lab, c0, **kw)
-    torch.cuda.synchronize()
-    k = c0.shape[1]
-    max_abs_err = int((got.long() - want.long()).abs().max())
-    in_range = bool(((got >= 0) & (got < k)).all())
-    kernel_ms, kernel_runs = cuda_ms(
-        lambda: slic_fused.slic_lloyd(lab, c0, **kw), reps=20)
-    plain_ms, _ = cuda_ms(
-        lambda: slic_fused.slic_lloyd_reference(lab, c0, **kw), reps=3,
-        warmup=1)
-    lloyd_ms, lloyd_by, n_bytes, n_ops = lloyd_bound_ms(
-        lab, c0, shape, sp.slic_iters)
-    lloyd = {"phase": "slic_lloyd", "images": UNIT,
-             "hw": list(cfg.resize_shape), "centres": k,
-             "sweeps": sp.slic_iters, "strip": list(slic_assign.STRIP),
-             "cluster": slic_fused.cluster_size(UNIT, *cfg.resize_shape),
-             "max_abs_err": max_abs_err, "labels_in_range": in_range,
-             "kernel_ms": kernel_ms, "kernel_runs_ms": kernel_runs,
-             "plain_ms": plain_ms, "bound_ms": lloyd_ms,
-             "bound_by": lloyd_by, "bytes": n_bytes, "operations": n_ops,
+    # at the main path's shape, then at every other shape of the paths
+    # that launch the kernel (fig 8's units, bench's label modes)
+    cases = {}
+    for n, h, w in lloyd_shapes(cfg.resize_shape):
+        cases[(n, h, w)] = lloyd_case(lloyd_images(images, n, h, w), sp)
+    main_shape = (UNIT, *cfg.resize_shape)
+    lloyd = {"phase": "slic_lloyd", **cases[main_shape],
+             "strip": list(slic_assign.STRIP),
+             "shapes": {shape_name(sh): {k: v for k, v in c.items()
+                                         if k != "kernel_runs_ms"}
+                        for sh, c in cases.items()},
              "scene_seconds": round(t_scenes, 3)}
     emit(lloyd)
-    check(max_abs_err == 0, "Lloyd kernel bit-equal to its plain version")
-    check(in_range, "labels in [0, K)")
+    max_abs_err = max(c["max_abs_err"] for c in cases.values())
+    check(max_abs_err == 0, "Lloyd kernel bit-equal to its plain version "
+          "at every shape")
+    check(all(c["labels_in_range"] for c in cases.values()),
+          "labels in [0, K)")
 
     # --- the assignment kernel at the overlaps path's inputs
     t0 = time.time()
@@ -2978,6 +3196,10 @@ def main() -> int:
     # --- the last gaps against the JAX package: parity over a group, the
     # training curves, the examples
     gaps = last_gaps_phase(frames, labels, train_curves)
+    torch.cuda.empty_cache()
+
+    # --- the port of bench.py, every mode of --mode all
+    bench_rows = bench_phase()
 
     # launches over every path that runs a kernel, each path's counts set
     # to 0 just before it and read just after (the dry run's rank: its
@@ -3002,7 +3224,33 @@ def main() -> int:
                    "last_gaps.quickstart": gaps["examples"]["quickstart"][
                        "launches"]["slic_lloyd"],
                    "last_gaps.explore": gaps["examples"]["explore"][
+                       "launches"]["slic_lloyd"],
+                   "sweep.fig8": sweep["grids"]["fig8_device_slic"][
                        "launches"]["slic_lloyd"]}
+    bench_launches = bench_rows["launches"]
+    lloyd_paths.update({f"bench.{m}": c["slic_lloyd"]
+                        for m, c in bench_launches.items()})
+    # slic_lloyd launches at several shapes: fig 8 at its units, bench's
+    # label modes at theirs, the paths of earlier slices at the main
+    # path's.  Its ms, plain_ms and bound_ms are means over the paths'
+    # launches, each shape weighted by its count
+    lloyd_by_shape = dict.fromkeys(cases, 0)
+    for path, n in lloyd_paths.items():
+        if path == "sweep.fig8":  # sweep_phase held n to these units
+            for n_images, units in fig8_lloyd_units().items():
+                lloyd_by_shape[(n_images, *cfg.resize_shape)] += units
+        elif path.startswith("bench.") and path[6:] in BENCH_LLOYD_MODES:
+            lloyd_by_shape[bench_lloyd_shape(path[6:])] += n
+        else:
+            lloyd_by_shape[main_shape] += n
+    n_lloyd = sum(lloyd_by_shape.values())
+
+    def lloyd_mean(key):
+        return sum(n * cases[sh][key]
+                   for sh, n in lloyd_by_shape.items()) / n_lloyd
+
+    heaviest = max(lloyd_by_shape,
+                   key=lambda sh: lloyd_by_shape[sh] * cases[sh]["bound_ms"])
     assign_paths = {
         "overlaps_path": overlaps["launches"],
         "overlaps_felzenszwalb_path.slic_connectivity":
@@ -3010,14 +3258,27 @@ def main() -> int:
         "several_ranks.dryrun_ranks": dry["rank_launches"],
         "several_ranks.dryrun_one_rank": dry["one_rank_launches"]}
     # slic_assign launches in two forms on the overlaps paths (labels once
-    # a batch, sums-only n_iter times): its ms, plain_ms and bound_ms are
-    # means over the paths' launches, each form weighted by its count
-    n_sums = sum(c["slic_assign_sums"] for c in assign_paths.values())
-    n_labels = sum(c["slic_assign"] for c in assign_paths.values()) - n_sums
+    # a batch, sums-only n_iter times), at two shapes: K = 98 on 30 frames
+    # of 1024x2048 (the dry run's small launches counted with them) and
+    # bench's overlaps_slic, K = 1,035 on 8 frames of 512x1024.  Its ms,
+    # plain_ms and bound_ms are means over the paths' launches, each form
+    # and shape weighted by its count
+    bench_assign = {"bench.overlaps_slic": bench_launches["overlaps_slic"]}
+
+    def forms(paths):
+        n_sums = sum(c["slic_assign_sums"] for c in paths.values())
+        return sum(c["slic_assign"] for c in paths.values()) - n_sums, n_sums
+
+    shapes = [(forms(assign_paths), assign),
+              (forms(bench_assign), assign["large_k"]["k1035"])]
+    n_labels = sum(f[0] for f, _ in shapes)
+    n_sums = sum(f[1] for f, _ in shapes)
 
     def per_launch(labels_key, sums_key):
-        return ((n_labels * assign[labels_key] + n_sums * assign[sums_key])
-                / (n_labels + n_sums))
+        return sum(nl * t[labels_key] + ns * t[sums_key]
+                   for (nl, ns), t in shapes) / (n_labels + n_sums)
+
+    assign_paths.update(bench_assign)
 
     kernels = [{
         "name": "slic_lloyd", "route": "cuda",
@@ -3025,8 +3286,14 @@ def main() -> int:
         "replaces": "spalign_tpu/kernels/slic_fused.py:52",
         "launches": sum(lloyd_paths.values()),
         "launches_by_path": lloyd_paths, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-        "bound_ms": lloyd_ms, "bound_by": lloyd_by, "library_ms": None}, {
+        "ms": lloyd_mean("kernel_ms"), "kernel_ms": lloyd_mean("kernel_ms"),
+        "plain_ms": lloyd_mean("plain_ms"), "bound_ms": lloyd_mean("bound_ms"),
+        "bound_by": cases[heaviest]["bound_by"], "library_ms": None,
+        "launches_by_shape": {shape_name(sh): n
+                              for sh, n in lloyd_by_shape.items()},
+        "by_shape": {shape_name(sh): {k: c[k] for k in (
+            "cluster", "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+            for sh, c in cases.items()}}, {
         "name": "slic_assign", "route": "cuda",
         "source": "spalign_tpu_torch/csrc/slic_assign.cu",
         "replaces": "spalign_tpu/kernels/experimental/slic_pallas.py:32",
@@ -3046,7 +3313,11 @@ def main() -> int:
         "sums_launches": n_sums, "sums_ms": assign["sums_ms"],
         "sums_plain_ms": assign["sums_plain_ms"],
         "sums_bound_ms": assign["sums_bound_ms"],
-        "bincount_ms": assign["update_ms"]["bincount_float64"]}]
+        "bincount_ms": assign["update_ms"]["bincount_float64"],
+        "large_k": {name: {k: v for k, v in case.items()
+                           if k.endswith(("ms", "by", "centres", "images",
+                                          "hw"))}
+                    for name, case in assign["large_k"].items()}}]
     # pooling: sums over the train step's four float32 levels (one
     # launch of the kernel at each), launches over the timed steps of
     # train_path and the train CLI's run (its steps and its evaluation)
@@ -3070,6 +3341,8 @@ def main() -> int:
                    train_curves["launches"][name],
                    "last_gaps.quickstart": gaps["examples"]["quickstart"][
                        "launches"][name]}
+        by_path.update({f"bench.{m}": c[name]
+                        for m, c in bench_launches.items()})
         kernels.append({
             "name": name, "route": "cuda", "source": POOL_SOURCE,
             "replaces": POOL_REPLACES[name],

@@ -7,13 +7,21 @@
 // warp w takes the strip of R = 4 rows w*R .. w*R + R - 1, lane i the
 // column i of each row.  A warp loads 128 contiguous bytes of a row from
 // each plane, and a lane scans the candidates once for its R pixels, which
-// share each candidate's shared-memory loads and its column test.  The
-// tile height is fixed here for both kernels: 32 rows were the fastest of
-// 16, 32 and 64 for the assignment kernel at the overlaps inputs and
-// within 4% of the fastest for the Lloyd kernel at 224^2 (PERF.md).
+// share each candidate's loads and its column test.  The tile height is
+// fixed here for both kernels: 32 rows were the fastest of 16, 32 and 64
+// for the assignment kernel at the overlaps inputs and within 4% of the
+// fastest for the Lloyd kernel at 224^2 (PERF.md).
 //
-// Candidates.  Before scoring, the warp tests the image's K centres, 32 at
-// a time (one per lane), against the strip's row and column range widened
+// Centres.  The scan reads centres through a view (index j -> the two
+// rows and the centre's id): SharedCentres, rows in shared memory with
+// their ids in increasing order (the Lloyd kernel's K centres, or the
+// assignment kernel's staged survivors of its tile), or GlobalCentres, an
+// image's (K, 5) rows in device memory with each row's float4 pair
+// computed on use in set_center's arithmetic, so that both views give the
+// same floats.
+//
+// Candidates.  Before scoring, the warp tests the view's centres, 32 at a
+// time (one per lane), against the strip's row and column range widened
 // by window + 1; the ballot of each 32 is walked bit by bit, lowest first,
 // so the survivors are scanned in increasing id order.  Each pixel runs
 // the exact window test and the score on the survivors only, with s >
@@ -23,19 +31,21 @@
 // whole pixel covers that with room to spare for the rounding of the
 // bounds.  So the survivors are a superset of every pixel's window set:
 // when none of them passes the exact test, the window is empty over all K,
-// and only then does the pixel scan all K unmasked.  The labels are those
-// of the all-K scan.  kernels/slic_assign.py::tile_candidates is the same
-// filter in plain PyTorch, with the same float32 expressions.
+// and only then does the pixel scan all K unmasked (through the second
+// view, which holds all K).  The labels are those of the all-K scan.
+// kernels/slic_assign.py::tile_candidates is the same filter in plain
+// PyTorch, with the same float32 expressions.
 //
 // Sums.  The survivors of a strip are numbered in scan order (slots).  A
 // warp-row's members are summed per group of lanes that chose the same
 // centre (__reduce_add_sync, exact in 32 bits for |L|, |a|, |b| < 1024),
 // and the group's sums go to the registers of the lane whose number is the
 // slot: no atomics while the strip is scanned.  At the end of the strip
-// each lane with members hands its sums on once (the kernel's flush).  A
-// centre that is not among the first 32 survivors, or that a pixel with an
-// empty window took, is handed on at once by the group's leader (the
-// kernel's spill); both are rare.
+// each lane with members hands its sums on once (the kernel's flush, by
+// the slot's view index).  A centre that is not among the first 32
+// survivors, or that a pixel with an empty window took, is handed on at
+// once by the group's leader (the kernel's spill, by the centre's id);
+// both are rare.
 
 #pragma once
 
@@ -72,6 +82,38 @@ __device__ __forceinline__ void set_center(float l, float a, float b,
   *feat = make_float4(b, yr, xr, half_norm2(l, a, b, yr, xr));
 }
 
+// Centres in shared memory: the rows set_center wrote, and their ids
+// (null: the index is the id).
+struct SharedCentres {
+  const float4* pos;
+  const float4* feat;
+  const int* ids;
+  int n;
+  __device__ __forceinline__ float4 get_pos(int j) const { return pos[j]; }
+  __device__ __forceinline__ float4 get_feat(int j) const { return feat[j]; }
+  __device__ __forceinline__ int id(int j) const {
+    return ids != nullptr ? ids[j] : j;
+  }
+};
+
+// An image's (K, 5) centre rows in device memory, the float4 pair of a
+// row computed on use exactly as set_center computes it.
+struct GlobalCentres {
+  const float* rows;
+  int n;
+  float ratio;
+  __device__ __forceinline__ float4 get_pos(int j) const {
+    const float* c = rows + (size_t)j * 5;
+    return make_float4(c[3], c[4], c[0], c[1]);
+  }
+  __device__ __forceinline__ float4 get_feat(int j) const {
+    const float* c = rows + (size_t)j * 5;
+    const float yr = __fmul_rn(c[3], ratio), xr = __fmul_rn(c[4], ratio);
+    return make_float4(c[2], yr, xr, half_norm2(c[0], c[1], c[2], yr, xr));
+  }
+  __device__ __forceinline__ int id(int j) const { return j; }
+};
+
 // f32 score p.c - |c|^2/2 in a fixed order, each operation rounded
 __device__ __forceinline__ float score(float4 pos, float4 feat, float l,
                                        float a, float b, float yr,
@@ -93,17 +135,18 @@ struct Sums {
 
 // The strip of R rows from y0 and 32 columns from x0 (cut at the image's
 // edge): loads the lane's R pixels, finds each one's centre among the
-// candidates (see the file comment), writes the labels when out is not
-// null (out indexes pixels py * width + px), and with kSums sums the
-// members: spill(k, sums) hands on a group whose centre k has no register
-// slot, flush(k, sums) a lane's slot sums at the end.  Every lane of the
-// warp calls it.
-template <bool kSums, typename Spill, typename Flush>
-__device__ __forceinline__ void scan_strip(
-    const float4* pos, const float4* feat, int n_centers,
-    const float* __restrict__ p_l, int hw, int height, int width, int y0,
-    int x0, float ratio, float window, int32_t* __restrict__ out,
-    Spill spill, Flush flush) {
+// candidates of ``cand`` (see the file comment; ``all`` holds every centre
+// for the empty-window fallback), writes the labels when out is not null
+// (out indexes pixels py * width + px), and with kSums sums the members:
+// spill(id, sums) hands on a group whose centre has no register slot,
+// flush(j, sums) a lane's slot sums at the end, j the slot's index in
+// ``cand``.  Every lane of the warp calls it.
+template <bool kSums, typename Cand, typename All, typename Spill,
+          typename Flush>
+__device__ __forceinline__ void scan_strip_over(
+    const Cand& cand, const All& all, const float* __restrict__ p_l, int hw,
+    int height, int width, int y0, int x0, float ratio, float window,
+    int32_t* __restrict__ out, Spill spill, Flush flush) {
   constexpr int R = kStripRows;
   const int lane = threadIdx.x & 31;
   const int px = x0 + lane;
@@ -132,20 +175,21 @@ __device__ __forceinline__ void scan_strip(
   const float hi_y = __fadd_rn((float)(min(y0 + R, height) - 1), pad);
   const float lo_x = __fsub_rn((float)x0, pad);
   const float hi_x = __fadd_rn((float)(min(x0 + 32, width) - 1), pad);
-  int n_cand = 0, my_center = -1;  // slot n_cand's centre, on lane n_cand
-  for (int base = 0; base < n_centers; base += 32) {
+  int n_cand = 0, my_slot = -1;  // slot n_cand's index in cand, on lane n_cand
+  for (int base = 0; base < cand.n; base += 32) {
     bool keep = false;
-    if (base + lane < n_centers) {
-      const float4 c = pos[base + lane];
+    if (base + lane < cand.n) {
+      const float4 c = cand.get_pos(base + lane);
       keep = c.x >= lo_y && c.x <= hi_y && c.y >= lo_x && c.y <= hi_x;
     }
     for (unsigned vote = __ballot_sync(kFullMask, keep); vote;
          vote &= vote - 1, ++n_cand) {
-      const int k = base + __ffs(vote) - 1;
-      if (lane == n_cand) my_center = k;
-      const float4 c = pos[k];
+      const int j = base + __ffs(vote) - 1;
+      if (lane == n_cand) my_slot = j;
+      const float4 c = cand.get_pos(j);
       if (fabsf(fx - c.y) > window) continue;
-      const float4 f = feat[k];
+      const float4 f = cand.get_feat(j);
+      const int k = cand.id(j);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         if (fabsf(fy[r] - c.x) <= window) {
@@ -162,9 +206,10 @@ __device__ __forceinline__ void scan_strip(
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (best[r] >= 0 || !valid[r]) continue;
-    for (int k = 0; k < n_centers; ++k) {  // empty window: unmasked argmax
-      const float s = score(pos[k], feat[k], l[r], a[r], b[r], yr[r], xr);
-      if (s > best_s[r]) { best_s[r] = s; best[r] = k; }
+    for (int k = 0; k < all.n; ++k) {  // empty window: unmasked argmax
+      const float s = score(all.get_pos(k), all.get_feat(k), l[r], a[r],
+                            b[r], yr[r], xr);
+      if (s > best_s[r]) { best_s[r] = s; best[r] = all.id(k); }
     }
   }
   if (out != nullptr) {
@@ -207,7 +252,20 @@ __device__ __forceinline__ void scan_strip(
       pending &= ~group;
     }
   }
-  if (mine.n > 0u) flush(my_center, mine);
+  if (mine.n > 0u) flush(my_slot, mine);
+}
+
+// The scan over an image's K centres staged whole in shared memory, ids
+// 0..K-1 (the Lloyd kernel's form).
+template <bool kSums, typename Spill, typename Flush>
+__device__ __forceinline__ void scan_strip(
+    const float4* pos, const float4* feat, int n_centers,
+    const float* __restrict__ p_l, int hw, int height, int width, int y0,
+    int x0, float ratio, float window, int32_t* __restrict__ out,
+    Spill spill, Flush flush) {
+  const SharedCentres centres = {pos, feat, nullptr, n_centers};
+  scan_strip_over<kSums>(centres, centres, p_l, hw, height, width, y0, x0,
+                         ratio, window, out, spill, flush);
 }
 
 // A signed 64-bit sum in shared memory as two 32-bit words, added with

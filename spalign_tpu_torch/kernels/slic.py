@@ -17,9 +17,10 @@ Two engines compute the same labels (the counterpart of JAX's
   * ``"assign"``: the per-sweep loop -- ``n_iter`` launches of the
     assignment kernel (``csrc/slic_assign.cu``) that return only the next
     update's integer centre sums, each followed by ``centers_from_sums``
-    on the B*K sums, then one launch that writes the labels: any K <= 1024
-    and H*W < 2^27, the size of the full-resolution frames of the overlaps
-    mode.  Nothing of size H*W but the labels is made on the card.
+    on the B*K sums, then one launch that writes the labels: any K, as
+    the TPU kernel takes (each block stages only the centres near its
+    tile), and H*W < 2^27, the size of the full-resolution frames of the
+    overlaps mode.  Nothing of size H*W but the labels is made on the card.
 
 Both kernels score a pixel only against its strip's candidate centres (a
 strip is 4 rows by 32 columns), the centres that lie within the window of

@@ -10,7 +10,7 @@ labels, ``center_sums`` of those labels for the sums.
 
 Inputs (both versions):
   lab:     (B, 3, H*W) float32 planar CIELAB (L, a, b planes).
-  centers: (B, K, 5) float32 centres, rows L, a, b, y, x; K <= 1024.
+  centers: (B, K, 5) float32 centres, rows L, a, b, y, x; any K >= 1.
 Output: (B, H*W) int32 labels, or with ``sums=True`` the (B, K, 6) int64
 sums of the next centre update (``center_sums``) and no labels.
 
@@ -24,7 +24,10 @@ labels bit for bit.
 
 Both SLIC kernels score a pixel only against the candidate centres of its
 warp's strip of pixels (``STRIP``: 4 rows of a 32 x 32 tile, 32 columns);
-``tile_candidates`` is that filter in plain PyTorch, for the tests.  The
+the assignment kernel first stages, per 32 x 32 tile (``TILE``), the
+centres near the tile, at most ``STAGE_CAP`` of them (a tile with more
+scans every centre from device memory).  ``tile_candidates`` is that
+filter in plain PyTorch, for the tests, at either size.  The
 centre update both engines share is here too: ``center_sums`` (the plain
 version of the fused sums), ``centers_from_sums`` and their composition
 ``update_centers``.  The kernel takes H, W <= 2^20.
@@ -33,15 +36,19 @@ version of the fused sums), ``centers_from_sums`` and their composition
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from spalign_tpu_torch.kernels._build import CudaLibrary
 
-MAX_CENTERS = 1024
 # a warp's strip of pixels (rows, columns) in both SLIC kernels, fixed in
-# csrc/slic_tile.cuh (4 of a block's 32 x 32 tile)
+# csrc/slic_tile.cuh (4 of a block's 32 x 32 tile), and the block's tile
 STRIP = (4, 32)
+TILE = (32, 32)
+# the centres a block of the assignment kernel stages at most
+# (csrc/slic_assign.cu kStageCap)
+STAGE_CAP = 512
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 LIBRARY = CudaLibrary("slic_assign", {
     # (lab, centers, labels, sums, B, H, W, K, ratio, window, stream)
@@ -49,12 +56,13 @@ LIBRARY = CudaLibrary("slic_assign", {
                                            _F, _F, _P]),
 })
 # pixel x centre elements the plain version materializes per chunk
-_PLAIN_CHUNK = 1 << 26
+_PLAIN_CHUNK = 1 << 25
 
 
 def check_inputs(lab: torch.Tensor, centers: torch.Tensor, height: int,
-                 width: int, max_centers: int = MAX_CENTERS):
-    """Shapes, types and sizes both SLIC engines take (raises)."""
+                 width: int, max_centers: Optional[int] = None):
+    """Shapes, types and sizes both SLIC engines take (raises):
+    ``max_centers`` None for no bound on K."""
     if lab.dim() != 3 or lab.shape[1] != 3 or lab.shape[2] != height * width:
         raise ValueError(f"lab must be (B, 3, {height * width}), got "
                          f"{tuple(lab.shape)}")
@@ -62,9 +70,10 @@ def check_inputs(lab: torch.Tensor, centers: torch.Tensor, height: int,
             or centers.shape[2] != 5):
         raise ValueError(f"centers must be (B, K, 5), got "
                          f"{tuple(centers.shape)}")
-    if not 0 < centers.shape[1] <= max_centers:
-        raise ValueError(f"K={centers.shape[1]} centres; the kernel takes "
-                         f"1..{max_centers}")
+    k = centers.shape[1]
+    if k < 1 or (max_centers is not None and k > max_centers):
+        raise ValueError(f"K={k} centres; the kernel takes "
+                         f"1..{max_centers or 'any'}")
     if lab.dtype != torch.float32 or centers.dtype != torch.float32:
         raise TypeError("lab and centers must be float32")
     if lab.device != centers.device:
@@ -169,7 +178,8 @@ def tile_candidates(centers: torch.Tensor, height: int, width: int,
                     tile: tuple, window: float) -> torch.Tensor:
     """The kernels' candidate filter in plain PyTorch: (B, tiles, K) bool
     over the grid of (rows, columns) ``tile`` blocks of pixels (the
-    kernels' are ``STRIP``), in row-major order.  A centre
+    kernels' strips are ``STRIP``, the assignment kernel's staging
+    ``TILE``), in row-major order.  A centre
     is a candidate of a tile when its raw (y, x) lie within the tile's
     pixel rows and columns, cut at the image's edge, widened by
     ``window + 1``, in the float32 expressions of ``csrc/slic_tile.cuh``:

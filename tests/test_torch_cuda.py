@@ -130,15 +130,28 @@ def _plain_sums(lab, centers, kw):
     (2, 300, 600, 1000, "grid"),  # K = 990
     (2, 300, 600, 1000, "after_2_sweeps"),
     (2, 96, 130, 40, "empty"),  # every window empty: global atomics
+    (8, 512, 1024, 1024, "grid"),  # K = 1,035: bench.py's overlaps_slic
+    (8, 512, 1024, 1024, "after_2_sweeps"),
+    (1, 128, 128, 4096, "after_2_sweeps"),  # K = 4,096 at a 2 px step
+    (2, 160, 200, 1000, "packed"),  # tiles past STAGE_CAP survivors
 ])
 def test_fused_sums_equal_center_sums(cuda, b, h, w, n_seg, case):
     """The kernel's int64 sums against bincount's over the plain labels,
-    and its labels against the plain labels."""
+    and its labels against the plain labels, at any K: "packed" puts
+    every centre in the top-left 48 x 48 pixels, so the tiles there hold
+    more survivors than a block stages (the scan of every centre from
+    device memory) and the pixels far from it have empty windows."""
     lab, c0, kw = _inputs(cuda, b, h, w, n_seg)
     kw = {k: v for k, v in kw.items() if k != "n_iter"}
     if case == "empty":
         c0 = c0.clone()
         c0[..., 3] += 10 * h
+    elif case == "packed":
+        c0 = c0.clone()
+        c0[..., 3] *= 48.0 / h
+        c0[..., 4] *= 48.0 / w
+        assert int(tsa.tile_candidates(c0, h, w, tsa.TILE, kw["window"])
+                   .sum(-1).max()) > tsa.STAGE_CAP
     elif case == "after_2_sweeps":
         for _ in range(2):
             c0 = tsa.update_centers(tsa.pixel_rows(lab, w),

@@ -31,6 +31,7 @@ from spalign_tpu_torch import config as tcfg
 from spalign_tpu_torch.cli import label_gen as cli
 from spalign_tpu_torch.convert.from_jax import drn_state_dict_from_flax
 from spalign_tpu_torch.data.png import decode_png
+from spalign_tpu_torch.kernels import slic as tslic
 from spalign_tpu_torch.models.drn import DRN_FACTORIES
 from spalign_tpu_torch.ops.resize import nn_resize_cv2
 from spalign_tpu_torch.pipeline import direct as tdirect
@@ -222,6 +223,22 @@ def test_overlaps_downscale_gives_block_constant_masks(weights, scenes):
     # the packed download carries the half-resolution mask
     np.testing.assert_array_equal(
         unpack_mask_bits(packed, FULL[1] // 2), got[:, ::2, ::2])
+
+
+def test_overlaps_slic_config_matches_jax(weights, scenes):
+    """bench.py's overlaps_slic superpixels (1024 segments, 5 sweeps,
+    max_superpixels 2048, slic_device_downscale 2): K = 1,035 on the
+    64x128 half frames, more centres than one TPU block of 1024 holds."""
+    sp = dict(method="slic", n_slic_segments=1024, slic_iters=5,
+              max_superpixels=2048, slic_enforce_connectivity=False,
+              slic_device_downscale=2)
+    assert tslic.slic_grid_size(FULL[0] // 2, FULL[1] // 2, 1024) == 1035
+    want, got, _, prep = _overlaps_pair(weights, scenes, downscale=2, sp=sp)
+    assert got.shape == want.shape == (B, *FULL)
+    assert (got == want).mean() >= 0.99
+    sps = prep["full_sps"]
+    assert sps.shape == (B, FULL[0] // 2, FULL[1] // 2)
+    assert int(sps.max()) < 1035 and len(torch.unique(sps[0])) > 900
 
 
 def test_process_dataset_both_modes(weights, scenes):

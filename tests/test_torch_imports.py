@@ -1,5 +1,5 @@
 """Rules of the port: spalign_tpu_torch/ and chip_smoke.py import no JAX,
-flax, cv2, PIL, matplotlib or spalign_tpu, and the entry points default
+flax, cv2, PIL, matplotlib, spalign_tpu or the root bench.py, and the entry points default
 to CUDA and raise without it instead of falling back to the CPU."""
 
 import ast
@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from spalign_tpu_torch import bench as port_bench
 from spalign_tpu_torch import config
 from spalign_tpu_torch import entry as port_entry
 from spalign_tpu_torch.cli import bottom_half as cli_bottom_half
@@ -34,7 +35,7 @@ from spalign_tpu_torch.train.trainer import Trainer, build_model
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "cv2", "PIL", "matplotlib",
-             "spalign_tpu")
+             "spalign_tpu", "bench")
 PORT_FILES = sorted((ROOT / "spalign_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -98,6 +99,7 @@ def test_the_scan_sees_the_whole_package():
             "spalign_tpu_torch/utils/timers.py",
             "spalign_tpu_torch/entry.py",
             "spalign_tpu_torch/kernels/experimental/ccl.py",
+            "spalign_tpu_torch/bench.py",
             "chip_smoke.py"} <= names
 
 
@@ -128,7 +130,9 @@ def test_entry_points_default_to_cuda():
         assert _default(factory) == "cuda"
     for entry in (Trainer.__init__, Evaluator.__init__, build_segnet,
                   build_model, port_entry.entry,
-                  port_entry.dryrun_multichip):
+                  port_entry.dryrun_multichip, port_bench.bench_label_gen,
+                  port_bench.bench_relabel, port_bench.bench_train,
+                  port_bench.run_mode):
         assert _default(entry) == "cuda"
 
 

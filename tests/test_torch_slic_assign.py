@@ -23,7 +23,9 @@ from spalign_tpu.kernels.experimental.slic_pallas import (pack_centers,
                                                           pack_pixels,
                                                           slic_assign_pallas)
 from spalign_tpu_torch.kernels import slic as tslic
-from spalign_tpu_torch.kernels.slic_assign import (slic_assign,
+from spalign_tpu_torch.kernels.slic_assign import (center_sums,
+                                                   centers_from_sums,
+                                                   slic_assign,
                                                    slic_assign_reference)
 from spalign_tpu_torch.kernels.slic_fused import (pixel_rows,
                                                   slic_lloyd_reference,
@@ -237,8 +239,11 @@ def test_cpu_wrapper_runs_the_plain_version(rng):
 def test_wrapper_and_engines_validate_inputs():
     lab = torch.zeros((1, 3, 16))
     kw = dict(height=4, width=4, ratio=1.0, window=1.0)
+    # any K >= 1 runs, as the TPU kernel takes any K
+    got = slic_assign(lab, torch.zeros((1, 1025, 5)), **kw)
+    assert got.shape == (1, 16) and int(got.max()) < 1025
     with pytest.raises(ValueError):
-        slic_assign(lab, torch.zeros((1, 1025, 5)), **kw)
+        slic_assign(lab, torch.zeros((1, 0, 5)), **kw)
     with pytest.raises(ValueError):
         slic_assign(lab, torch.zeros((2, 3, 5)), **kw)
     with pytest.raises(TypeError):
@@ -255,3 +260,54 @@ def test_wrapper_and_engines_validate_inputs():
     with pytest.raises(ValueError, match="engine"):
         tslic.slic(np.zeros((1, 8, 8, 3), np.float32), engine="dense",
                    device="cpu")
+
+
+@pytest.fixture
+def interpret_pallas(monkeypatch):
+    """JAX's ``slic(use_pallas=True)`` as the JAX package's tests run its
+    Pallas kernel on the CPU: ``slic_assign_pallas`` in interpret mode."""
+    import functools
+
+    from spalign_tpu.kernels.experimental import slic_pallas
+
+    monkeypatch.setattr(slic_pallas, "slic_assign_pallas", functools.partial(
+        slic_pallas.slic_assign_pallas, interpret=True))
+
+
+def test_per_sweep_slic_past_1024_centres_matches_jax(interpret_pallas):
+    """K = 1,176 (64x128, 1200 segments), beyond one TPU block's 1024: the
+    port's per-sweep engine against JAX's dense sweep and its Pallas
+    assignment loop, at the bar of tests/test_slic_pallas.py:122."""
+    img, _ = SyntheticRoadScenes(n=1, full_shape=(64, 128), seed=5)[0]
+    img = img.astype(np.float32)
+    k = tslic.slic_grid_size(64, 128, 1200)
+    assert k == 1176
+    got = tslic.slic(img[None], n_segments=1200, n_iter=5, engine="assign",
+                     device="cpu")[0].numpy()
+    assert tslic.engine_for(64, 128, k) == "assign"
+    for use_pallas in (False, True):
+        want = np.asarray(jslic.slic(jnp.asarray(img), n_segments=1200,
+                                     n_iter=5, use_fused=False,
+                                     use_pallas=use_pallas))
+        assert (got == want).mean() >= 0.995, use_pallas
+    assert got.min() >= 0 and got.max() < k
+
+
+def test_wrapper_takes_4096_centres(rng):
+    """K = 4,096 (128x128, 4096 segments: a grid step of 2 px) through the
+    wrapper, sums and labels, and one sweep of the per-sweep engine."""
+    img = torch.from_numpy(rng.randint(0, 255, (1, 128, 128, 3)).astype(
+        np.float32))
+    lab, c0, shape = tslic.slic_inputs(img, 4096, 10.0)
+    assert c0.shape[1] == 4096
+    sums = slic_assign(lab, c0, sums=True, **shape)
+    want = center_sums(pixel_rows(lab, 128),
+                       slic_assign_reference(lab, c0, **shape), c0)
+    assert torch.equal(sums, want)
+    assert int(sums[..., 5].sum()) == 128 * 128
+    labels = slic_assign(lab, centers_from_sums(sums, c0), **shape)
+    got = tslic.slic(img, n_segments=4096, n_iter=1, engine="assign",
+                     device="cpu")
+    np.testing.assert_array_equal(got.reshape(1, -1).numpy(),
+                                  labels.numpy())
+    assert int(got.max()) < 4096 and len(torch.unique(got)) > 2000

@@ -9,7 +9,11 @@ of every pixel's window set, whatever the centres: on the grid, drifted by
 several cells, partly outside the image, or all far away (every window
 empty).  Then the labels computed from the candidate lists equal
 ``slic_assign_reference`` exactly, and so the kernels' labels can equal it
-bit for bit.  Tolerance: none (boolean sets and integer labels).
+bit for bit.  The assignment kernel first stages the survivors of the
+same filter over its whole 32 x 32 tile (``slic_assign.TILE``, at most
+``STAGE_CAP`` of them): they must hold every strip's candidates, and on
+the grid at the label paths' shapes they fit the stage.  Tolerance: none
+(boolean sets and integer labels).
 
 The centre update is split into ``center_sums`` (the plain version of the
 assignment kernel's fused int64 sums) and ``centers_from_sums``; their
@@ -30,11 +34,13 @@ STRIPS = [tsa.STRIP, (8 * tsa.STRIP[0], tsa.STRIP[1])]
 # (H, W, n_segments) with K = 9, 100 and 990 grid centres; H*W ragged
 # against every strip shape
 IMAGES = {9: (45, 45, 9), 100: (150, 150, 100), 990: (99, 110, 1000)}
+# and K = 4,096 at a grid step of 2 px, for the assignment kernel's staging
+STAGE_IMAGES = {**IMAGES, 4096: (128, 128, 4096)}
 
 
 def _case(k, case, seed=0):
     """lab (1, 3, HW), centres (1, K, 5) and the shape keywords."""
-    h, w, n_seg = IMAGES[k]
+    h, w, n_seg = STAGE_IMAGES[k]
     assert tslic.slic_grid_size(h, w, n_seg) == k
     rng = np.random.RandomState(seed + k)
     img = torch.from_numpy(rng.randint(0, 255, (1, h, w, 3)).astype(
@@ -119,6 +125,45 @@ def test_candidates_cover_every_window(k, case):
             assert cand.float().sum(-1).max() < k / 2
         got = _labels_from_candidates(lab, c, shape, cand, strip)
         np.testing.assert_array_equal(got.numpy(), want[0].numpy())
+
+
+@pytest.mark.parametrize("case", ["grid", "drifted", "outside", "far"])
+@pytest.mark.parametrize("k", sorted(STAGE_IMAGES))
+def test_tile_survivors_hold_every_strip_candidate(k, case):
+    """The assignment kernel stages the survivors of its 32 x 32 tile's
+    filter, and each warp filters its strip among them: every strip's
+    candidates among all K are survivors of its tile, so the strip scans
+    the same centres in the same (id) order as over all K."""
+    _, c, shape = _case(k, case)
+    h, w, win = shape["height"], shape["width"], shape["window"]
+    tiles = tsa.tile_candidates(c, h, w, tsa.TILE, win)[0]
+    strips = tsa.tile_candidates(c, h, w, tsa.STRIP, win)[0]
+    n_x = -(-w // tsa.TILE[1])
+    assert tsa.STRIP[1] == tsa.TILE[1]
+    sy = torch.arange(-(-h // tsa.STRIP[0]))
+    tile_of = ((sy // (tsa.TILE[0] // tsa.STRIP[0]))[:, None] * n_x
+               + torch.arange(n_x)).reshape(-1)
+    assert strips.shape[0] == len(tile_of)
+    assert not (strips & ~tiles[tile_of]).any()
+    if case == "grid" and k >= 990:  # the tile filter does filter
+        assert tiles.float().sum(-1).max() < k / 2
+
+
+@pytest.mark.parametrize("h,w,n_seg", [(224, 224, 100), (1024, 2048, 100),
+                                       (512, 1024, 1024), (1024, 2048, 4096),
+                                       (128, 128, 4096)])
+def test_grid_survivors_fit_the_stage(h, w, n_seg):
+    """On the grid, at the shapes the label paths and chip_smoke run (the
+    overlaps frames at K = 98, bench.py's overlaps_slic at K = 1,035, K =
+    4,095 on 1024x2048, and the 2 px step of K = 4,096 at 128x128), no
+    tile has more survivors than the assignment kernel stages: its staged
+    path runs, not the scan of every centre."""
+    centers_yx, step = tslic._init_centers(h, w, n_seg)[:2]
+    c = torch.zeros((1, len(centers_yx), 5))
+    c[0, :, 3:] = torch.from_numpy(centers_yx)
+    most = int(tsa.tile_candidates(c, h, w, tsa.TILE, 2.0 * step).sum(
+        -1).max())
+    assert 0 < most <= tsa.STAGE_CAP
 
 
 def test_candidates_follow_the_kernel_bounds():

@@ -160,7 +160,8 @@ def _read_csv(path):
 
 @pytest.mark.parametrize("param,values", [
     ("kmeans.n_clusters", ["2", "3", "4"]),
-    ("superpixel.felzenszwalb_scale", ["100", "300"])])
+    ("superpixel.felzenszwalb_scale", ["100", "300"]),
+    ("batchsize", ["1", "3", "6"])])  # fig 8's axis
 def test_sweep_cli_rows_like_jax(shared_pth, tmp_path, capsys, param,
                                  values):
     flags = ["--grid", "custom", "--param", param, "--values", *values,
@@ -183,6 +184,10 @@ def test_sweep_cli_rows_like_jax(shared_pth, tmp_path, capsys, param,
     assert len(said) == len(jsaid) == len(values) + 1
     for row, jrow in zip(rows, jrows):
         assert row[0] == jrow[0]
-        assert row[4] == jrow[4] == "4"
+        # n: the records of the row's batches, the tail batch overlapping
+        # its predecessor (4 images: 6 records at batch size 3)
+        assert row[4] == jrow[4]
+        if param != "batchsize":
+            assert row[4] == "4"
         assert row[5] == "-1"
         assert abs(float(row[1]) - float(jrow[1])) <= 0.1
