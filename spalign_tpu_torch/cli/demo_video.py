@@ -88,7 +88,7 @@ def main(argv=None):
     frame_fns = sorted(glob.glob(os.path.join(args.frames_dir, "*.png")))
     chunks = [frame_fns[i:i + bs] for i in range(0, len(frame_fns), bs)]
     os.makedirs(args.out_dir, exist_ok=True)
-    timers = StageTimer()
+    timers = StageTimer("demo.")
 
     def load(chunk):
         """(raw frames, the standardized padded batch, decode s, resize
@@ -112,7 +112,7 @@ def main(argv=None):
                     ahead = loader.submit(load, chunks[i + 1])
                 timers.add("decode", t_decode)
                 timers.add("resize", t_resize)
-                with timers.stage("forward", dev):
+                with timers.stage("forward"):  # .cpu() waits
                     labels = predict_labels(
                         model, torch.from_numpy(batch).to(dev),
                         pred_shape=tuple(args.pred_shape)).cpu().numpy()

@@ -18,6 +18,7 @@ from typing import Iterator, Optional, Sequence
 import numpy as np
 
 from spalign_tpu_torch.parallel.dist import rank_slice
+from spalign_tpu_torch.utils.timers import count, span
 
 
 class PrefetchLoader:
@@ -107,7 +108,10 @@ class PrefetchLoader:
         t.start()
         try:
             while True:
-                item = q.get()
+                count("loader.takes")
+                count("loader.ready", q.qsize())  # batches waiting
+                with span("train.loader_wait"):
+                    item = q.get()
                 if item is None:
                     break
                 yield item

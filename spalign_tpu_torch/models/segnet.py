@@ -44,6 +44,7 @@ from spalign_tpu_torch.ops.pooling import max_pool_argmax_2x2, max_unpool_2x2
 from spalign_tpu_torch.ops.resize import bilinear_resize
 from spalign_tpu_torch.parallel.dist import world_size
 from spalign_tpu_torch.utils.device import resolve_device
+from spalign_tpu_torch.utils.timers import span
 
 # stddev of the unit normal truncated to [-2, 2] (flax variance_scaling)
 _TRUNC_STD = 0.87962566103423978
@@ -253,12 +254,13 @@ def build_segnet(model: str = "basic", n_class: int = 2,
     dev = resolve_device(device)
     if model not in SEGNETS:
         raise ValueError(f"unknown model {model!r}")
-    net = SEGNETS[model](n_class=n_class, dtype=dtype)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    net = init_segnet_(net, generator).to(dev)
-    if dev.type == "cuda":
-        net = net.to(memory_format=torch.channels_last)
+    with span("setup.build_segnet"):
+        net = SEGNETS[model](n_class=n_class, dtype=dtype)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        net = init_segnet_(net, generator).to(dev)
+        if dev.type == "cuda":
+            net = net.to(memory_format=torch.channels_last)
     return net
 
 

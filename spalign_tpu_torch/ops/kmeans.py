@@ -17,7 +17,7 @@ Every function takes a leading group axis G (``X`` (G, N, D)) or none
 keeps its carries frozen while the others go on, which is what the JAX
 package's vmapped ``while_loop`` does.  The host checks whether every
 group has stopped only every ``check_every`` sweeps (one device sync
-each); the results do not depend on it.  Padded rows (``valid`` False)
+each, a ``kmeans.check`` span); the results do not depend on it.  Padded rows (``valid`` False)
 carry weight 0 and assignment -1.
 """
 
@@ -26,6 +26,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
+
+from spalign_tpu_torch.utils.timers import span
 
 
 class KMeansResult(NamedTuple):
@@ -135,8 +137,11 @@ def weighted_kmeans_from_init(X: torch.Tensor, weights: torch.Tensor,
     empty_stop = torch.zeros_like(done)
     ks = torch.arange(k, device=dev)
     for t in range(n_iter):
-        if t and t % check_every == 0 and bool(done.all()):
-            break
+        if t and t % check_every == 0:
+            with span("kmeans.check"):
+                stop = bool(done.all())
+            if stop:
+                break
         new_assign = _assign_step(X, x2, centers, valid)
         same = (new_assign == assign).all(-1)
         eff_w = torch.where(new_assign == 0, weights, w_other)

@@ -52,7 +52,7 @@ from spalign_tpu_torch.pipeline.label_gen import (KMEANS_CHECK_EVERY,
                                                   pack_mask_bits)
 from spalign_tpu_torch.pipeline.superpixels import (batched_slic_device,
                                                     batched_slic_device_yuv)
-from spalign_tpu_torch.utils.timers import StageTimer
+from spalign_tpu_torch.utils.timers import StageTimer, span
 
 
 def _pixel_features(feature_maps: torch.Tensor, prior_params):
@@ -169,27 +169,30 @@ class DirectLabelGenerator(LabelGeneratorBase):
                 "res": res}
 
     def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
-        self._wait_ready(prepared)
-        seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
-        with timers.stage("device_program", self.device):
-            handles = self.run_unit(prepared["wire"], seeds)
-        if "full_sps" in prepared:
-            upscale = prepared["sps_upscale"]
-            with timers.stage("refine", self.device):
-                handles["road"], handles["road_packed"] = refine_and_pack(
-                    handles["road"], prepared["full_sps"],
-                    self.cfg.overlap_threshold,
-                    self.cfg.superpixel.max_superpixels, upscale)
-            handles["packed_upscale"] = upscale
-        else:
-            handles["road_packed"] = pack_mask_bits(handles["road"])
-        res = handles["res"]
-        fetch = {"road_packed": handles["road_packed"],
-                 "n_iter": res.n_iter, "converged": res.converged,
-                 "empty_stop": res.empty_stop}
-        if self._want_cluster_np:
-            fetch["cluster"] = handles["cluster"].to(torch.uint8)
-        handles["_host"] = self._to_host(fetch)
+        with span("label.dispatch", unit=prepared.get("unit")):
+            self._wait_ready(prepared)
+            seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
+            with timers.device_stage("device_program", self.device):
+                handles = self.run_unit(prepared["wire"], seeds)
+            if "full_sps" in prepared:
+                upscale = prepared["sps_upscale"]
+                with timers.device_stage("refine", self.device):
+                    handles["road"], handles["road_packed"] = \
+                        refine_and_pack(handles["road"],
+                                        prepared["full_sps"],
+                                        self.cfg.overlap_threshold,
+                                        self.cfg.superpixel.max_superpixels,
+                                        upscale)
+                handles["packed_upscale"] = upscale
+            else:
+                handles["road_packed"] = pack_mask_bits(handles["road"])
+            res = handles["res"]
+            fetch = {"road_packed": handles["road_packed"],
+                     "n_iter": res.n_iter, "converged": res.converged,
+                     "empty_stop": res.empty_stop}
+            if self._want_cluster_np:
+                fetch["cluster"] = handles["cluster"].to(torch.uint8)
+            handles["_host"] = self._to_host(fetch)
         return handles
 
     def finish_batch(self, prepared: dict, handles: dict,
@@ -227,7 +230,7 @@ class OverlapsLabelGenerator(DirectLabelGenerator):
         and stays on the device."""
         if full_images is None:
             raise ValueError("overlaps mode needs full-resolution images")
-        timers = timers or StageTimer()
+        timers = timers or StageTimer("label.")
         prepared = super()._host_prepare(images_uint8, full_images, timers)
         sp = self.cfg.superpixel
         if sp.method != "slic" or sp.slic_enforce_connectivity:
@@ -248,7 +251,10 @@ class OverlapsLabelGenerator(DirectLabelGenerator):
         if s_grid > sp.max_superpixels:
             raise ValueError(f"SLIC grid {s_grid} > max_superpixels "
                              f"{sp.max_superpixels}")
-        with timers.stage("superpixel"):
+        # the stage's time runs to the end of the SLIC on the upload
+        # stream, read when the unit lands
+        with timers.device_stage("superpixel", self.device,
+                                 self._upload_stream):
             full_images = np.ascontiguousarray(full_images)
             if self.cfg.upload_format == "yuv420" and h % 2 == 0 \
                     and w % 2 == 0:
@@ -269,7 +275,6 @@ class OverlapsLabelGenerator(DirectLabelGenerator):
                     sps = run(dev)  # ordered after its upload
                     ready = torch.cuda.Event()
                     ready.record(self._upload_stream)
-                ready.synchronize()  # the stage covers the device SLIC
         prepared["host"].append(host)
         prepared["ready"].append((sps, ready))
         prepared.update(full_sps=sps, sps_upscale=d,

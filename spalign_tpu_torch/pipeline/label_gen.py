@@ -99,7 +99,7 @@ from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 from spalign_tpu_torch.pipeline.wire import decode_yuv420
 from spalign_tpu_torch.utils.device import resolve_device
-from spalign_tpu_torch.utils.timers import StageTimer
+from spalign_tpu_torch.utils.timers import StageTimer, count, span
 from spalign_tpu_torch.utils.viz import save_diagnostic_panel
 
 # k-means sweeps between the host's checks whether every group stopped
@@ -509,7 +509,7 @@ class LabelGeneratorBase:
         thread, so it overlaps the previous unit's device work).  The
         device tensors a unit uses, each with the event its producer
         recorded, are listed under ``"ready"``."""
-        timers = timers or StageTimer()
+        timers = timers or StageTimer("label.")
         with timers.stage("upload"):
             images_uint8 = np.ascontiguousarray(images_uint8)
             host, wire, ready = self._upload(
@@ -567,9 +567,10 @@ class LabelGeneratorBase:
     def _landed(handles: dict) -> dict:
         """Wait for a dispatch's ``_to_host`` copies; numpy arrays."""
         host, landed = handles["_host"]
-        if landed is not None:
-            landed.synchronize()
-        return {name: t.numpy() for name, t in host.items()}
+        with span("label.land"):
+            if landed is not None:
+                landed.synchronize()
+            return {name: t.numpy() for name, t in host.items()}
 
     def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
         raise NotImplementedError
@@ -588,7 +589,7 @@ class LabelGeneratorBase:
         cfg.resize_shape (and the full-resolution frames where the mode
         needs them), one clustering group.  Returns (road_masks bool,
         cluster_maps int32, diagnostics, StageTimer)."""
-        timers = timers or StageTimer()
+        timers = timers or StageTimer("label.")
         prepared = self._host_prepare(images_uint8, full_images, timers)
         handles = self.dispatch_batch(prepared, timers)
         road, cluster, diag = self.finish_batch(prepared, handles, timers)
@@ -634,29 +635,32 @@ class LabelGeneratorBase:
         self._want_cluster_np = bool(save)
         records = []
         pending = deque()
-        for item in self._prefetched(dataset, units, prefetch):
-            handles = self.dispatch_batch(item[4], item[5])
-            pending.append((item, handles))
-            if len(pending) > self.in_flight:
+        with span("label.pass"):
+            for item in self._prefetched(dataset, units, prefetch):
+                handles = self.dispatch_batch(item[4], item[5])
+                pending.append((item, handles))
+                if len(pending) > self.in_flight:
+                    records.extend(self._finish_loaded(
+                        dataset, *pending.popleft(), save=save,
+                        writer=writer))
+            while pending:
                 records.extend(self._finish_loaded(
                     dataset, *pending.popleft(), save=save, writer=writer))
-        while pending:
-            records.extend(self._finish_loaded(
-                dataset, *pending.popleft(), save=save, writer=writer))
         return records
 
-    def _load_unit(self, dataset, unit):
-        """Load and upload this rank's shard of a unit."""
+    def _load_unit(self, dataset, number, unit):
+        """Load and upload this rank's shard of a unit, the pass's unit
+        ``number`` (its spans' ``unit`` id)."""
         indices = pdist.local_rows(
             [idx for (i, j) in unit for idx in range(i, j)], self.group)
-        timers = StageTimer()
+        timers = StageTimer("label.", unit=number)
         with timers.stage("load"):
             imgs, labels = _load_batch(dataset, indices,
                                        self.cfg.resize_shape)
             full_images = (_load_full_images(dataset, indices)
                            if self.needs_full_images else None)
         prepared = self._host_prepare(imgs, full_images, timers)
-        prepared["n_groups"] = len(unit)
+        prepared.update(n_groups=len(unit), unit=number)
         return (indices, imgs, labels, full_images, prepared, timers)
 
     def _unit_images(self, n_local: int) -> int:
@@ -674,18 +678,18 @@ class LabelGeneratorBase:
     def _prefetched(self, dataset, units, depth):
         """Yield loaded units in order, ``depth`` ahead on one thread."""
         if depth <= 0 or len(units) <= 1:
-            for unit in units:
-                yield self._load_unit(dataset, unit)
+            for number, unit in enumerate(units):
+                yield self._load_unit(dataset, number, unit)
             return
         with ThreadPoolExecutor(max_workers=1) as ex:
-            it = iter(units)
+            it = enumerate(units)
             futures = deque()
 
             def submit_next():
-                unit = next(it, None)
-                if unit is not None:
+                nxt = next(it, None)
+                if nxt is not None:
                     futures.append(ex.submit(self._load_unit, dataset,
-                                             unit))
+                                             *nxt))
 
             for _ in range(depth):
                 submit_next()
@@ -716,58 +720,59 @@ class LabelGeneratorBase:
                          for r, l in zip(road_np, labels)]
         else:
             confs = [None] * len(indices)
-        if save:
-            out_hw = (tuple(labels.shape[1:]) if labels is not None
-                      else tuple(road_np.shape[1:]))
-            up_road = nn_resize_np(road_np.astype(np.uint8), out_hw)
-            up_cluster = nn_resize_np(got["cluster"], out_hw)
-            os.makedirs(cfg.out_dir, exist_ok=True)
-            if (cfg.save_images and labels is not None
-                    and full_images is None):
-                full_images = _load_full_images(dataset, indices)
-        times = timers.finish()
-        cfg_flat = flatten(cfg)
-        records = []
-        for b, idx in enumerate(indices):
-            img_fn = _name(dataset, "image_name", idx)
-            rec = {"img_fn": img_fn,
-                   "label_fn": _name(dataset, "label_name", idx)}
-            if confs[b] is not None:
-                rec.update(_confusion_record(confs[b]))
-            rec.update(cfg_flat)
-            rec.update(times)
-            rec.update(diag)
-            gi = min((offset + b) // group_size,
-                     len(next(iter(per_group.values()))) - 1)
-            rec.update({k: v[gi] for k, v in per_group.items()})
-            records.append(rec)
+        with timers.span("records"):
             if save:
-                base = os.path.splitext(os.path.basename(img_fn))[0]
-                np.save(os.path.join(cfg.out_dir, base), up_road[b])
-                np.save(os.path.join(cfg.out_dir, base + "_all_cluster"),
-                        up_cluster[b])
-                if labels is None:
-                    # without ground truth the raw 0/1 mask is also
-                    # written as a PNG under the image's file name, the
-                    # format the demo-video compositor reads (reference
-                    # utils/apply_spalign_kmeans.py:70-71)
-                    write_png(os.path.join(cfg.out_dir,
-                                           os.path.basename(img_fn)),
-                              up_road[b].astype(np.uint8))
-                elif cfg.save_images:
-                    # the panel takes the mask PNG's file name, so it is
-                    # written in the GT mode only (the reference's split:
-                    # batch_spalign_kmeans.py:361-387 writes panels,
-                    # apply_spalign_kmeans.py the raw masks)
-                    save_diagnostic_panel(
-                        cfg.out_dir, img_fn, full_images[b], up_road[b],
-                        up_cluster[b], create_label_mask(labels[b]))
-        if self.group is not None:
-            parts = pdist.gather_objects(records, self.group)
-            if parts is not None:
-                records = [r for part in parts for r in part]
-        if writer is not None:
-            writer.append_many(records)
+                out_hw = (tuple(labels.shape[1:]) if labels is not None
+                          else tuple(road_np.shape[1:]))
+                up_road = nn_resize_np(road_np.astype(np.uint8), out_hw)
+                up_cluster = nn_resize_np(got["cluster"], out_hw)
+                os.makedirs(cfg.out_dir, exist_ok=True)
+                if (cfg.save_images and labels is not None
+                        and full_images is None):
+                    full_images = _load_full_images(dataset, indices)
+            times = timers.finish()
+            cfg_flat = flatten(cfg)
+            records = []
+            for b, idx in enumerate(indices):
+                img_fn = _name(dataset, "image_name", idx)
+                rec = {"img_fn": img_fn,
+                       "label_fn": _name(dataset, "label_name", idx)}
+                if confs[b] is not None:
+                    rec.update(_confusion_record(confs[b]))
+                rec.update(cfg_flat)
+                rec.update(times)
+                rec.update(diag)
+                gi = min((offset + b) // group_size,
+                         len(next(iter(per_group.values()))) - 1)
+                rec.update({k: v[gi] for k, v in per_group.items()})
+                records.append(rec)
+                if save:
+                    base = os.path.splitext(os.path.basename(img_fn))[0]
+                    np.save(os.path.join(cfg.out_dir, base), up_road[b])
+                    np.save(os.path.join(cfg.out_dir, base + "_all_cluster"),
+                            up_cluster[b])
+                    if labels is None:
+                        # without ground truth the raw 0/1 mask is also
+                        # written as a PNG under the image's file name, the
+                        # format the demo-video compositor reads (reference
+                        # utils/apply_spalign_kmeans.py:70-71)
+                        write_png(os.path.join(cfg.out_dir,
+                                               os.path.basename(img_fn)),
+                                  up_road[b].astype(np.uint8))
+                    elif cfg.save_images:
+                        # the panel takes the mask PNG's file name, so it is
+                        # written in the GT mode only (the reference's split:
+                        # batch_spalign_kmeans.py:361-387 writes panels,
+                        # apply_spalign_kmeans.py the raw masks)
+                        save_diagnostic_panel(
+                            cfg.out_dir, img_fn, full_images[b], up_road[b],
+                            up_cluster[b], create_label_mask(labels[b]))
+            if self.group is not None:
+                parts = pdist.gather_objects(records, self.group)
+                if parts is not None:
+                    records = [r for part in parts for r in part]
+            if writer is not None:
+                writer.append_many(records)
         return records
 
 
@@ -814,7 +819,7 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                       timers: Optional[StageTimer] = None) -> dict:
         """Upload the batch; with a host engine, compute its superpixels
         (SLIC from the uploaded batch) and upload the maps too."""
-        timers = timers or StageTimer()
+        timers = timers or StageTimer("label.")
         prepared = super()._host_prepare(images_uint8, full_images, timers)
         if fused_superpixels(self.cfg):
             return prepared
@@ -833,22 +838,30 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         road_packed, cluster, assign, the KMeansResult ``res``, per-group
         ``ok`` and the superpixel maps."""
         cfg = self.cfg
-        images = self.decode(wire)
-        sps = self.superpixels(images) if sps is None else sps.to(
-            torch.int32)
-        fmaps = self.features(images)
+        with span("label.decode"):
+            images = self.decode(wire)
+        with span("label.superpixels"):
+            sps = self.superpixels(images) if sps is None else sps.to(
+                torch.int32)
+        with span("label.features"):
+            fmaps = self.features(images)
         g = len(seeds)
         hw = sps.shape[1] * sps.shape[2]
-        if draws is None:
-            draws = draw_unit(seeds, self._unit_images(sps.shape[0]) // g,
-                              hw, self.num_segments, self.device)
-        road, cluster, assign, res, ok = cluster_groups(
-            fmaps, sps, draws, n_groups=g, n_anchors=cfg.align.n_anchors,
-            num_segments=self.num_segments,
-            append_pos=cfg.align.append_pos, k=cfg.kmeans.n_clusters,
-            n_iter=cfg.kmeans.n_iter, prior_params=self._prior_params,
-            pos_scale=float(self._downscale), group=self.group)
-        return {"road": road, "road_packed": pack_mask_bits(road),
+        with span("label.cluster"):
+            if draws is None:
+                draws = draw_unit(seeds,
+                                  self._unit_images(sps.shape[0]) // g, hw,
+                                  self.num_segments, self.device)
+            road, cluster, assign, res, ok = cluster_groups(
+                fmaps, sps, draws, n_groups=g,
+                n_anchors=cfg.align.n_anchors,
+                num_segments=self.num_segments,
+                append_pos=cfg.align.append_pos, k=cfg.kmeans.n_clusters,
+                n_iter=cfg.kmeans.n_iter, prior_params=self._prior_params,
+                pos_scale=float(self._downscale), group=self.group)
+        with span("label.pack"):
+            packed = pack_mask_bits(road)
+        return {"road": road, "road_packed": packed,
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}
 
@@ -875,7 +888,7 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         cfg = self.cfg
         s = self.num_segments
         if "parity" not in prepared:
-            with timers.stage("features", self.device):
+            with timers.device_stage("features", self.device):
                 fmaps = pdist.all_gather(self.features(self.decode(
                     prepared["wire"])).to(torch.float32), self.group)
                 fmaps = fmaps.cpu().numpy()
@@ -917,7 +930,7 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         for i, n_i in enumerate(counts):
             assign0[i, :n_i] = a_cat[o:o + n_i]
             o += int(n_i)
-        with timers.stage("device_program", self.device):
+        with timers.device_stage("device_program", self.device):
             res = weighted_kmeans_from_init(
                 feats, prior, valid,
                 torch.from_numpy(assign0).to(self.device).reshape(1, -1),
@@ -938,21 +951,23 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         """Run the unit's device program; the masks and diagnostics start
         their way to the host (pinned, non-blocking), and ``finish_batch``
         waits for them."""
-        self._wait_ready(prepared)
-        if self.cfg.kmeans.init == "reference":
-            handles = self.run_parity(prepared, timers)
-        else:
-            seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
-            with timers.stage("device_program", self.device):
-                handles = self.run_unit(prepared["wire"], seeds,
-                                        sps=prepared.get("sps"))
-        res = handles["res"]
-        fetch = {"road_packed": handles["road_packed"], "ok": handles["ok"],
-                 "n_iter": res.n_iter, "converged": res.converged,
-                 "empty_stop": res.empty_stop}
-        if self._want_cluster_np:
-            fetch["cluster"] = handles["cluster"].to(torch.uint8)
-        handles["_host"] = self._to_host(fetch)
+        with span("label.dispatch", unit=prepared.get("unit")):
+            self._wait_ready(prepared)
+            if self.cfg.kmeans.init == "reference":
+                handles = self.run_parity(prepared, timers)
+            else:
+                seeds = self._unit_seeds(int(prepared.get("n_groups", 1)))
+                with timers.device_stage("device_program", self.device):
+                    handles = self.run_unit(prepared["wire"], seeds,
+                                            sps=prepared.get("sps"))
+            res = handles["res"]
+            fetch = {"road_packed": handles["road_packed"],
+                     "ok": handles["ok"], "n_iter": res.n_iter,
+                     "converged": res.converged,
+                     "empty_stop": res.empty_stop}
+            if self._want_cluster_np:
+                fetch["cluster"] = handles["cluster"].to(torch.uint8)
+            handles["_host"] = self._to_host(fetch)
         return handles
 
     def finish_batch(self, prepared: dict, handles: dict,
@@ -968,6 +983,8 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         with timers.stage("kmeans"):
             for attempt in range(tries):
                 got = self._landed(handles)
+                count("kmeans.sweeps", int(got["n_iter"].sum()))
+                count("kmeans.groups", len(got["n_iter"]))
                 if bool(np.all(got["ok"])) or attempt + 1 >= tries:
                     break
                 retries += 1

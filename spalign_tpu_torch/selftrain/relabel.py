@@ -232,7 +232,7 @@ def relabel_dataset(model, variables, dataset, out_zip: str,
                                  - rank * len(local)))
 
     def load(sl):
-        timers = StageTimer()
+        timers = StageTimer("relabel.")
         with timers.stage("load"):
             idx, n_real = shard(sl)
             with ThreadPoolExecutor(min(LOAD_THREADS, len(idx))) as pool:

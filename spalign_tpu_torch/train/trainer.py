@@ -37,6 +37,7 @@ from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.train.losses import rank_loss_fn
 from spalign_tpu_torch.utils.curves import write_curves
 from spalign_tpu_torch.utils.device import full_float32
+from spalign_tpu_torch.utils.timers import device_span, span, tracing
 
 _DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
@@ -90,72 +91,81 @@ class Trainer:
     """
 
     def __init__(self, cfg: TrainConfig, model=None, device="cuda"):
-        self.device = pdist.setup(device)
-        self.world, self.rank = pdist.world_size(), pdist.rank()
-        if cfg.num_devices not in (None, self.world):
-            raise ValueError(
-                f"num_devices={cfg.num_devices} but the process group has "
-                f"{self.world} rank(s): launch one process per device with "
-                f"torchrun --nproc_per_node {cfg.num_devices}")
-        pdist.shard_size(cfg.batchsize, self.world)
-        self.cfg = cfg
-        full_float32(self.device)
-        self.model = (build_model(cfg, self.device) if model is None
-                      else model.to(self.device))
-        self.model.train()
-        if self.world > 1:
-            # every rank starts from rank 0's weights and statistics
-            for t in self.model.state_dict().values():
-                torch.distributed.broadcast(t, 0)
-        self.optimizer, self.scheduler = make_optimizer(
-            cfg, self.model.parameters())
-        self.loss_fn = rank_loss_fn(cfg.loss, self.world)
-        self.step = 0
-        self._log_path = os.path.join(cfg.result_dir, "log")
-        self._log: list = []
-        self._t0 = time.time()
-        if self.rank == 0:
-            os.makedirs(cfg.result_dir, exist_ok=True)
-            with open(os.path.join(cfg.result_dir, "args.txt"), "w") as f:
-                json.dump(asdict(cfg), f, indent=4, sort_keys=True,
-                          default=str)
+        with span("setup.trainer"):
+            self.device = pdist.setup(device)
+            self.world, self.rank = pdist.world_size(), pdist.rank()
+            if cfg.num_devices not in (None, self.world):
+                raise ValueError(
+                    f"num_devices={cfg.num_devices} but the process group "
+                    f"has {self.world} rank(s): launch one process per "
+                    f"device with torchrun --nproc_per_node "
+                    f"{cfg.num_devices}")
+            pdist.shard_size(cfg.batchsize, self.world)
+            self.cfg = cfg
+            full_float32(self.device)
+            self.model = (build_model(cfg, self.device) if model is None
+                          else model.to(self.device))
+            self.model.train()
+            if self.world > 1:
+                # every rank starts from rank 0's weights and statistics
+                for t in self.model.state_dict().values():
+                    torch.distributed.broadcast(t, 0)
+            self.optimizer, self.scheduler = make_optimizer(
+                cfg, self.model.parameters())
+            self.loss_fn = rank_loss_fn(cfg.loss, self.world)
+            self.step = 0
+            self._log_path = os.path.join(cfg.result_dir, "log")
+            self._log: list = []
+            self._t0 = time.time()
+            if self.rank == 0:
+                os.makedirs(cfg.result_dir, exist_ok=True)
+                with open(os.path.join(cfg.result_dir, "args.txt"),
+                          "w") as f:
+                    json.dump(asdict(cfg), f, indent=4, sort_keys=True,
+                              default=str)
 
     def to_device(self, images, labels):
         """Host batch (numpy or tensors) -> device tensors."""
-        return (torch.as_tensor(images, dtype=torch.float32,
-                                device=self.device),
-                torch.as_tensor(labels, device=self.device))
+        with span("train.h2d", step=self.step):
+            return (torch.as_tensor(images, dtype=torch.float32,
+                                    device=self.device),
+                    torch.as_tensor(labels, device=self.device))
 
     def train_step(self, images: torch.Tensor, labels: torch.Tensor) -> dict:
         """One update on this rank's rows of a global batch (the whole
         batch at world size 1); returns device scalars {'loss',
         'grad_norm'} of the global batch without reading them."""
-        self.model.train()
-        loss = self.loss_fn(self.model(images), labels)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
-        grads = [p.grad for p in self.model.parameters()
-                 if p.grad is not None]
-        if self.world > 1:
-            loss = self._average(grads, loss.detach())
-        grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
-                                   for g in grads))
-        self.optimizer.step()
-        if self.scheduler is not None:
-            self.scheduler.step()
-        self.step += 1
+        with span("train.step", step=self.step):
+            self.model.train()
+            loss = self.loss_fn(self.model(images), labels)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
+            grads = [p.grad for p in self.model.parameters()
+                     if p.grad is not None]
+            if self.world > 1:
+                loss = self._average(grads, loss.detach())
+            grad_norm = torch.sqrt(sum((g.float() * g.float()).sum()
+                                       for g in grads))
+            self.optimizer.step()
+            if self.scheduler is not None:
+                self.scheduler.step()
+            self.step += 1
         return {"loss": loss.detach(), "grad_norm": grad_norm}
 
     def _average(self, grads, loss):
         """Average the gradients (in place) and the loss over the ranks
-        in one all-reduce; returns the averaged loss."""
-        flat = torch.cat([g.reshape(-1) for g in grads] + [loss.reshape(1)])
-        torch.distributed.all_reduce(flat)
-        flat /= self.world
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        in one all-reduce; returns the averaged loss.  Its span takes
+        the device time too while a profiler records."""
+        name = "train.grad_allreduce"
+        with (device_span(name, self.device) if tracing() else span(name)):
+            flat = torch.cat([g.reshape(-1) for g in grads]
+                             + [loss.reshape(1)])
+            torch.distributed.all_reduce(flat)
+            flat /= self.world
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
         return flat[-1]
 
     def state_dict(self) -> dict:

@@ -293,6 +293,73 @@ def test_native_scorer_in_the_card_label_loop(cuda, monkeypatch):
     assert all(np.isfinite(r["road_iou"]) for r in recs)
 
 
+
+class _Frames:
+    """Network-size frames in memory, no GT."""
+
+    def __init__(self, n, hw, seed=0):
+        rng = np.random.RandomState(seed)
+        self.frames = rng.randint(0, 256, (n, *hw, 3), dtype=np.uint8)
+
+    def __len__(self):
+        return len(self.frames)
+
+    def resized_batch(self, indices, hw):
+        return self.frames[indices], None
+
+
+def test_label_loop_never_synchronizes_and_times_its_units(cuda,
+                                                           monkeypatch):
+    """Two units of 5 x 30 at 224^2 (the drn26-spalign-slic cell's
+    shapes): no ``torch.cuda.synchronize`` while the loop runs, and each
+    unit's device program (its device span, CUDA events) is over 0 and
+    shorter than its unit's dispatch-to-land interval."""
+    from spalign_tpu_torch.config import (AlignConfig, KMeansConfig,
+                                          LabelGenConfig, PriorConfig,
+                                          SuperpixelConfig)
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+    from spalign_tpu_torch.utils import timers
+
+    cfg = LabelGenConfig(
+        resize_shape=(224, 224), batchsize=30, groups_per_dispatch=5,
+        upload_format="yuv420", model_dtype="bfloat16",
+        use_feature_maps=(7,), save_masks=False,
+        superpixel=SuperpixelConfig(
+            method="slic", n_slic_segments=100, slic_compactness=10.0,
+            slic_iters=10, slic_enforce_connectivity=False,
+            max_superpixels=256),
+        prior=PriorConfig(0.75, 0.5, 0.1, 0.1),
+        align=AlignConfig(n_anchors=10, n_neighbors=4, append_pos=True),
+        kmeans=KMeansConfig(n_clusters=4, n_iter=1000, max_retries=3))
+    gen = SpalignLabelGenerator(cfg, device=cuda)
+    ds = _Frames(300, (224, 224))
+    gen.process_dataset(ds)  # builds and warms every shape
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counting(*a, **k):
+        calls.append(a)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counting)
+    timers.reset()
+    recs = gen.process_dataset(ds)
+    assert calls == [] and len(recs) == 300
+    sp = timers.spans()
+    start, end = {}, {}  # a unit's first dispatch, its last landing
+    for s in sp:
+        u = s.ids.get("unit")
+        if s.name == "label.dispatch":
+            start[u] = min(start.get(u, s.start_ns), s.start_ns)
+        elif s.name == "label.land":
+            end[u] = max(end.get(u, s.end_ns), s.end_ns)
+    device = [s for s in sp if s.name == "label.device_program"]
+    assert sorted(start) == sorted(end) == [0, 1] and len(device) >= 2
+    for s in device:
+        u = s.ids["unit"]
+        assert 0 < s.device_ns < end[u] - start[u]
+    assert recs[0]["time_device_program"] > 0
+
 # ---- the SegNet pooling kernels (csrc/pooling.cu) ----
 
 
