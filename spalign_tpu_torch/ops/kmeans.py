@@ -17,17 +17,20 @@ Every function takes a leading group axis G (``X`` (G, N, D)) or none
 keeps its carries frozen while the others go on, which is what the JAX
 package's vmapped ``while_loop`` does.  The host checks whether every
 group has stopped only every ``check_every`` sweeps (one device sync
-each, a ``kmeans.check`` span); the results do not depend on it.  Padded rows (``valid`` False)
-carry weight 0 and assignment -1.
+each, a ``kmeans.check`` span); the results do not depend on it.  On
+CUDA tensors each chunk of ``check_every`` sweeps is one replay of a
+CUDA graph, so the chunk costs the host one launch instead of ~41 a
+sweep.  Padded rows (``valid`` False) carry weight 0 and assignment -1.
 """
 
 from __future__ import annotations
 
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 
-from spalign_tpu_torch.utils.timers import span
+from spalign_tpu_torch.utils.timers import count, span
 
 
 class KMeansResult(NamedTuple):
@@ -117,49 +120,134 @@ def weighted_kmeans_from_init(X: torch.Tensor, weights: torch.Tensor,
                               valid: torch.Tensor, assign0: torch.Tensor,
                               k: int = 4, n_iter: int = 1000,
                               check_every: int = 16) -> KMeansResult:
-    """The Lloyd loop from an explicit initial assignment."""
+    """The Lloyd loop from an explicit initial assignment, in chunks of
+    ``check_every`` sweeps with the host's check between two chunks.  On
+    CUDA tensors a whole chunk is one replay of a CUDA graph of the
+    chunk's sweeps (``_LloydGraph``); a shorter last chunk and CPU
+    tensors run the sweeps one by one.  Counters: ``kmeans.chunks`` for
+    every chunk, ``kmeans.replays`` for the chunks a graph ran."""
     if check_every < 1:
         raise ValueError(f"check_every={check_every} must be >= 1")
     (weights, valid, assign0), added = _grouped(weights, valid, assign0)
     if added:
         X = X[None]
-    X = X.to(torch.float32)
+    X = X.to(torch.float32).contiguous()
     weights = weights.to(torch.float32)
-    w_other = 1.0 - weights
     dev = X.device
     g = X.shape[0]
-    centers = _cluster_means(X, assign0, valid.to(torch.float32), k)
     x2 = (X * X).sum(-1, keepdim=True)  # loop-invariant
-    assign = assign0.to(torch.int32)
-    it = torch.zeros(g, dtype=torch.int32, device=dev)
+    inputs = (X, x2, weights, 1.0 - weights, valid,
+              torch.arange(k, device=dev))
     done = torch.zeros(g, dtype=torch.bool, device=dev)
-    converged = torch.zeros_like(done)
-    empty_stop = torch.zeros_like(done)
-    ks = torch.arange(k, device=dev)
-    for t in range(n_iter):
-        if t and t % check_every == 0:
+    carries = (assign0.to(torch.int32),
+               _cluster_means(X, assign0, valid.to(torch.float32), k),
+               torch.zeros(g, dtype=torch.int32, device=dev), done,
+               torch.zeros_like(done), torch.zeros_like(done))
+    graph = None
+    t = 0
+    while t < n_iter:
+        if t:
             with span("kmeans.check"):
-                stop = bool(done.all())
+                stop = bool(carries[3].all())
             if stop:
                 break
-        new_assign = _assign_step(X, x2, centers, valid)
-        same = (new_assign == assign).all(-1)
-        eff_w = torch.where(new_assign == 0, weights, w_other)
-        eff_w = torch.where(valid, eff_w, 0.0)
-        new_centers = _cluster_means(X, new_assign, eff_w, k)
-        counts = (new_assign[..., None] == ks).sum(1)  # (G, k)
-        any_empty = (counts == 0).any(-1)
-        active = ~done
-        # on `same` the reference breaks before updating the centres
-        centers = torch.where((active & ~same)[:, None, None], new_centers,
-                              centers)
-        assign = torch.where(active[:, None], new_assign, assign)
-        it = it + active.to(torch.int32)
-        converged = torch.where(active, same, converged)
-        empty_stop = torch.where(active, any_empty & ~same, empty_stop)
-        done = done | (active & (same | any_empty))
+        m = min(check_every, n_iter - t)
+        count("kmeans.chunks")
+        if X.is_cuda and m == check_every:
+            if graph is None:
+                graph = _LloydGraph.load(inputs, carries, m)
+            graph.graph.replay()
+            carries = graph.carries
+            count("kmeans.replays")
+        else:
+            for _ in range(m):
+                carries = _sweep(inputs, carries)
+        t += m
+    if graph is not None:  # the next call's replays rewrite the buffers
+        carries = tuple(c.clone() for c in carries)
+    assign, centers, it, _, converged, empty_stop = carries
     res = KMeansResult(assign, centers, it, converged, empty_stop)
     return KMeansResult(*(r[0] for r in res)) if added else res
+
+
+def _sweep(inputs, carries):
+    """One Lloyd sweep of every group: the new carries (assign, centers,
+    it, done, converged, empty_stop) from the loop's inputs (X, x2,
+    weights, 1 - weights, valid, arange(k)).  A group that has stopped
+    keeps its carries."""
+    X, x2, weights, w_other, valid, ks = inputs
+    assign, centers, it, done, converged, empty_stop = carries
+    new_assign = _assign_step(X, x2, centers, valid)
+    same = (new_assign == assign).all(-1)
+    eff_w = torch.where(new_assign == 0, weights, w_other)
+    eff_w = torch.where(valid, eff_w, 0.0)
+    new_centers = _cluster_means(X, new_assign, eff_w, len(ks))
+    counts = (new_assign[..., None] == ks).sum(1)  # (G, k)
+    any_empty = (counts == 0).any(-1)
+    active = ~done
+    # on `same` the reference breaks before updating the centres
+    centers = torch.where((active & ~same)[:, None, None], new_centers,
+                          centers)
+    assign = torch.where(active[:, None], new_assign, assign)
+    it = it + active.to(torch.int32)
+    converged = torch.where(active, same, converged)
+    empty_stop = torch.where(active, any_empty & ~same, empty_stop)
+    done = done | (active & (same | any_empty))
+    return assign, centers, it, done, converged, empty_stop
+
+
+class _LloydGraph:
+    """A chunk of ``length`` sweeps captured as one CUDA graph over
+    static copies of the loop's inputs and carries; a replay leaves the
+    chunk's carries in ``carries``.  One graph a (device, shape, k,
+    length, dtypes), the newest ``CACHE`` kept (``_GRAPHS``).  Capture
+    synchronizes the card and empties the allocator's caches, so it is
+    made on a shape's first use only; later calls copy their inputs and
+    initial carries in, so calls of one shape must not run concurrently
+    from two threads (the label loop runs the k-means on one)."""
+
+    CACHE = 8
+
+    def __init__(self, inputs, carries, length):
+        self.inputs = tuple(t.clone() for t in inputs)
+        self.carries = tuple(t.clone() for t in carries)
+        self.graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream(self.inputs[0].device)
+        side.wait_stream(torch.cuda.current_stream(side.device))
+        with torch.cuda.stream(side):  # lazy inits stay out of the graph
+            _sweep(self.inputs, self.carries)
+        # thread_local: other threads (the label loop's producer) go on
+        # uploading while this thread captures
+        with torch.cuda.graph(self.graph, stream=side,
+                              capture_error_mode="thread_local"):
+            out = self.carries
+            for _ in range(length):
+                out = _sweep(self.inputs, out)
+            for dst, src in zip(self.carries, out):
+                dst.copy_(src)
+
+    @classmethod
+    def load(cls, inputs, carries, length) -> "_LloydGraph":
+        """The graph of this chunk's key, holding these inputs and
+        carries."""
+        X, _, _, _, valid, ks = inputs
+        key = (X.device, *X.shape, len(ks), length, X.dtype, valid.dtype,
+               carries[0].dtype)
+        graph = _GRAPHS.pop(key, None)
+        if graph is None:
+            with torch.cuda.device(X.device):
+                graph = cls(inputs, carries, length)
+        else:
+            for dst, src in zip(graph.inputs + graph.carries,
+                                inputs + carries):
+                dst.copy_(src)
+        _GRAPHS[key] = graph
+        while len(_GRAPHS) > cls.CACHE:
+            _GRAPHS.popitem(last=False)
+        return graph
+
+
+_GRAPHS: "OrderedDict[tuple, _LloydGraph]" = OrderedDict()
 
 
 def paint_clusters(superpixels: torch.Tensor,

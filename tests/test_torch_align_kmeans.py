@@ -21,6 +21,7 @@ from spalign_tpu_torch.ops import align as talign
 from spalign_tpu_torch.ops import kmeans as tkm
 from spalign_tpu_torch.ops import prior as tprior
 from spalign_tpu_torch.ops import segments as tseg
+from spalign_tpu_torch.utils import timers
 from spalign_tpu_torch.pipeline.label_gen import (pack_mask_bits,
                                                   unpack_mask_bits)
 
@@ -279,6 +280,67 @@ def test_grouped_loop_equals_per_group(check_every):
         assert bool(got.converged[g]) == bool(one.converged)
         iters.append(int(one.n_iter))
     assert len(set(iters)) > 1  # the groups really stop at different sweeps
+
+
+def _lloyd_unchunked(X, weights, valid, assign0, k, n_iter, check_every):
+    """The Lloyd loop as one Python loop of sweeps with the check every
+    ``check_every`` sweeps, written out op by op: the reference the
+    chunked loop is held to."""
+    X, weights, valid = X[None], weights[None], valid[None]
+    assign = assign0[None].to(torch.int32)
+    w_other = 1.0 - weights
+    centers = tkm._cluster_means(X, assign, valid.to(torch.float32), k)
+    x2 = (X * X).sum(-1, keepdim=True)
+    it = torch.zeros(1, dtype=torch.int32)
+    done = torch.zeros(1, dtype=torch.bool)
+    converged, empty_stop = torch.zeros_like(done), torch.zeros_like(done)
+    for t in range(n_iter):
+        if t and t % check_every == 0 and bool(done.all()):
+            break
+        new_assign = tkm._assign_step(X, x2, centers, valid)
+        same = (new_assign == assign).all(-1)
+        eff_w = torch.where(valid, torch.where(new_assign == 0, weights,
+                                               w_other), 0.0)
+        new_centers = tkm._cluster_means(X, new_assign, eff_w, k)
+        any_empty = ((new_assign[..., None] == torch.arange(k)).sum(1)
+                     == 0).any(-1)
+        active = ~done
+        centers = torch.where((active & ~same)[:, None, None], new_centers,
+                              centers)
+        assign = torch.where(active[:, None], new_assign, assign)
+        it = it + active.to(torch.int32)
+        converged = torch.where(active, same, converged)
+        empty_stop = torch.where(active, any_empty & ~same, empty_stop)
+        done = done | (active & (same | any_empty))
+    return assign[0], centers[0], it[0], converged[0], empty_stop[0]
+
+
+@pytest.mark.parametrize("seed,spread,n_iter,check_every", [
+    (0, 1.2, 1000, 1), (1, 1.2, 1000, 3), (2, 1.2, 1000, 16),
+    (3, 8.0, 50, 16), (4, 0.3, 7, 4), (5, 0.3, 1000, 1000)])
+def test_cpu_loop_runs_eager_chunks_equal_to_the_unchunked_loop(
+        seed, spread, n_iter, check_every):
+    """On CPU tensors the loop runs its chunks sweep by sweep: it counts
+    each chunk and no replay, and its results equal the unchunked loop's
+    bit for bit (``n_iter = 7`` with chunks of 4: a shorter last
+    chunk)."""
+    X, w, valid = (torch.from_numpy(a) for a in _kmeans_inputs(
+        seed, spread=spread))
+    a0 = tkm.kmeans_seed_assignment(w, valid, 4,
+                                    generator=torch.Generator().manual_seed(
+                                        seed))
+    before = timers.counts()
+    got = tkm.weighted_kmeans_from_init(X, w, valid, a0, k=4,
+                                        n_iter=n_iter,
+                                        check_every=check_every)
+    after = timers.counts()
+    want = _lloyd_unchunked(X, w, valid, a0, 4, n_iter, check_every)
+    for g, v in zip(got, want):  # an emptied cluster's centre is NaN
+        torch.testing.assert_close(g, v, rtol=0, atol=0, equal_nan=True)
+    chunks = -(-int(got.n_iter) // check_every)
+    assert (after["kmeans.chunks"] - before.get("kmeans.chunks", 0)
+            == chunks)
+    assert after.get("kmeans.replays", 0) == before.get("kmeans.replays", 0)
 
 
 def test_paint_and_pack_equal_jax():

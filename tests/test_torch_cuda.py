@@ -308,17 +308,13 @@ class _Frames:
         return self.frames[indices], None
 
 
-def test_label_loop_never_synchronizes_and_times_its_units(cuda,
-                                                           monkeypatch):
-    """Two units of 5 x 30 at 224^2 (the drn26-spalign-slic cell's
-    shapes): no ``torch.cuda.synchronize`` while the loop runs, and each
-    unit's device program (its device span, CUDA events) is over 0 and
-    shorter than its unit's dispatch-to-land interval."""
+def _cell_generator(dev):
+    """The drn26-spalign-slic cell's generator: units of 5 x 30 at 224^2,
+    device SLIC, yuv420, the DRN in bf16."""
     from spalign_tpu_torch.config import (AlignConfig, KMeansConfig,
                                           LabelGenConfig, PriorConfig,
                                           SuperpixelConfig)
     from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
-    from spalign_tpu_torch.utils import timers
 
     cfg = LabelGenConfig(
         resize_shape=(224, 224), batchsize=30, groups_per_dispatch=5,
@@ -331,7 +327,18 @@ def test_label_loop_never_synchronizes_and_times_its_units(cuda,
         prior=PriorConfig(0.75, 0.5, 0.1, 0.1),
         align=AlignConfig(n_anchors=10, n_neighbors=4, append_pos=True),
         kmeans=KMeansConfig(n_clusters=4, n_iter=1000, max_retries=3))
-    gen = SpalignLabelGenerator(cfg, device=cuda)
+    return SpalignLabelGenerator(cfg, device=dev)
+
+
+def test_label_loop_never_synchronizes_and_times_its_units(cuda,
+                                                           monkeypatch):
+    """Two units of 5 x 30 at 224^2 (the drn26-spalign-slic cell's
+    shapes): no ``torch.cuda.synchronize`` while the loop runs, and each
+    unit's device program (its device span, CUDA events) is over 0 and
+    shorter than its unit's dispatch-to-land interval."""
+    from spalign_tpu_torch.utils import timers
+
+    gen = _cell_generator(cuda)
     ds = _Frames(300, (224, 224))
     gen.process_dataset(ds)  # builds and warms every shape
     calls = []
@@ -359,6 +366,103 @@ def test_label_loop_never_synchronizes_and_times_its_units(cuda,
         u = s.ids["unit"]
         assert 0 < s.device_ns < end[u] - start[u]
     assert recs[0]["time_device_program"] > 0
+
+def test_label_loop_takes_no_capture_after_its_warm_pass(cuda):
+    """After a first pass over two units of 5 x 30 at 224^2, a second
+    pass runs every k-means chunk as a replay of the graph the first
+    captured, and captures none."""
+    from spalign_tpu_torch.ops import kmeans as tkm
+    from spalign_tpu_torch.utils import timers
+
+    gen = _cell_generator(cuda)
+    ds = _Frames(300, (224, 224))
+    gen.process_dataset(ds)
+    graphs = list(tkm._GRAPHS.items())
+    timers.reset()
+    gen.process_dataset(ds)
+    c = timers.counts()
+    assert c["kmeans.chunks"] == c["kmeans.replays"] >= 2
+    assert list(tkm._GRAPHS.items()) == graphs
+
+
+# ---- the k-means Lloyd loop as CUDA graph replays (ops/kmeans.py) ----
+
+
+def _lloyd_groups(dev, seed, n=3000, d=514):
+    """Five groups at the cell's k-means shape, (5, 3000, 514) float32:
+    four far blobs (a few sweeps), one point repeated (a cluster empties
+    in the first sweep) and three of eight close blobs each (tens of
+    sweeps); 40 padded rows a group."""
+    g = torch.Generator().manual_seed(seed)
+
+    def blobs(n_blobs, spread):
+        c = torch.randn(n_blobs, d, generator=g) * spread
+        lab = torch.randint(0, n_blobs, (n,), generator=g)
+        return c[lab] + torch.randn(n, d, generator=g)
+
+    X = torch.stack([blobs(4, 10.0), blobs(1, 1.0)[:1].expand(n, d),
+                     blobs(8, 0.1), blobs(8, 0.1), blobs(8, 0.1)])
+    w = torch.rand(5, n, generator=g)
+    valid = torch.ones(5, n, dtype=torch.bool)
+    valid[:, -40:] = False
+    u = torch.rand(5, n, generator=g)
+    return X.to(dev), w.to(dev), valid.to(dev), u.to(dev)
+
+
+def _replays():
+    from spalign_tpu_torch.utils import timers
+
+    return timers.counts().get("kmeans.replays", 0)
+
+
+@pytest.mark.parametrize("n_iter", [40, 1000])
+def test_lloyd_graph_replays_equal_the_eager_loop(cuda, n_iter):
+    """Chunks of 16 sweeps replayed as a CUDA graph against the same
+    sweeps run one by one (one chunk longer than ``n_iter``: no replay),
+    float32 with TF32 off: equal assignments, sweep counts and stop flags,
+    bit-equal centres.  The groups stop within the first chunk, the
+    second and later (at 40: by the sweep limit, after two replays and
+    an eager chunk of 8), one on an empty cluster."""
+    from spalign_tpu_torch.ops import kmeans as tkm
+
+    X, w, valid, u = _lloyd_groups(cuda, 1)
+    before = _replays()
+    want = tkm.weighted_kmeans(X, w, valid, k=4, n_iter=n_iter, uniforms=u,
+                               check_every=n_iter + 1)
+    assert _replays() == before
+    got = tkm.weighted_kmeans(X, w, valid, k=4, n_iter=n_iter, uniforms=u,
+                              check_every=16)
+    assert _replays() >= before + 2
+    it = want.n_iter.cpu()
+    assert (it <= 16).any() and ((it > 16) & (it <= 32)).any()
+    assert (it > 32).any() and bool(want.empty_stop.any())
+    for name, a, b in zip(want._fields, want, got):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True,
+                                   msg=name)
+
+
+def test_lloyd_graph_outputs_never_alias_its_buffers(cuda):
+    """Two calls of one shape with other inputs replay one graph: the
+    first call's results are unchanged after the second call, and the
+    second's equal its eager run."""
+    from spalign_tpu_torch.ops import kmeans as tkm
+
+    ins = _lloyd_groups(cuda, 2)
+    first = tkm.weighted_kmeans(*ins[:3], k=4, uniforms=ins[3])
+    kept = [t.clone() for t in first]
+    ins = _lloyd_groups(cuda, 3)
+    before = _replays()
+    second = tkm.weighted_kmeans(*ins[:3], k=4, uniforms=ins[3])
+    assert _replays() > before
+    want = tkm.weighted_kmeans(*ins[:3], k=4, uniforms=ins[3],
+                               check_every=1001)
+    torch.cuda.synchronize()
+    assert not torch.equal(first.assignment, second.assignment)
+    for a, b in zip(kept, first):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True)
+    for a, b in zip(want, second):
+        torch.testing.assert_close(b, a, rtol=0, atol=0, equal_nan=True)
+
 
 # ---- the SegNet pooling kernels (csrc/pooling.cu) ----
 
