@@ -99,7 +99,8 @@ from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 from spalign_tpu_torch.pipeline.wire import decode_yuv420
 from spalign_tpu_torch.utils.device import resolve_device
-from spalign_tpu_torch.utils.timers import StageTimer, count, span
+from spalign_tpu_torch.utils.timers import (StageTimer, count, device_span,
+                                            span)
 from spalign_tpu_torch.utils.viz import save_diagnostic_panel
 
 # k-means sweeps between the host's checks whether every group stopped
@@ -471,7 +472,8 @@ class LabelGeneratorBase:
     @torch.no_grad()
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) RGB 0..255 on the device -> (B, hf, wf, C)
-        float32 concatenated DRN maps."""
+        float32 concatenated DRN maps; counts the images (``drn.images``)."""
+        count("drn.images", int(images.shape[0]))
         x = preprocess_imagenet(images)
         return self.model.features(x, self.cfg.use_feature_maps)
 
@@ -843,7 +845,7 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         with span("label.superpixels"):
             sps = self.superpixels(images) if sps is None else sps.to(
                 torch.int32)
-        with span("label.features"):
+        with device_span("label.features", self.device):
             fmaps = self.features(images)
         g = len(seeds)
         hw = sps.shape[1] * sps.shape[2]

@@ -308,8 +308,9 @@ class _Frames:
         return self.frames[indices], None
 
 
-def _cell_generator(dev):
-    """The drn26-spalign-slic cell's generator: units of 5 x 30 at 224^2,
+def _cell_generator(dev, model_name="drn_c_26"):
+    """The drn26-spalign-slic cell's generator (with ``model_name``
+    "drn_d_105", drnd105-spalign-slic's): units of 5 x 30 at 224^2,
     device SLIC, yuv420, the DRN in bf16."""
     from spalign_tpu_torch.config import (AlignConfig, KMeansConfig,
                                           LabelGenConfig, PriorConfig,
@@ -327,18 +328,22 @@ def _cell_generator(dev):
         prior=PriorConfig(0.75, 0.5, 0.1, 0.1),
         align=AlignConfig(n_anchors=10, n_neighbors=4, append_pos=True),
         kmeans=KMeansConfig(n_clusters=4, n_iter=1000, max_retries=3))
-    return SpalignLabelGenerator(cfg, device=dev)
+    return SpalignLabelGenerator(cfg, model_name=model_name, device=dev)
 
 
+@pytest.mark.parametrize("model_name", ["drn_c_26", "drn_d_105"])
 def test_label_loop_never_synchronizes_and_times_its_units(cuda,
-                                                           monkeypatch):
-    """Two units of 5 x 30 at 224^2 (the drn26-spalign-slic cell's
-    shapes): no ``torch.cuda.synchronize`` while the loop runs, and each
-    unit's device program (its device span, CUDA events) is over 0 and
-    shorter than its unit's dispatch-to-land interval."""
+                                                           monkeypatch,
+                                                           model_name):
+    """Two units of 5 x 30 at 224^2 (the drn26-spalign-slic and
+    drnd105-spalign-slic cells' shapes): no ``torch.cuda.synchronize``
+    while the loop runs; each unit's device program (its device span,
+    CUDA events) is over 0 and shorter than its unit's dispatch-to-land
+    interval, and its backbone (the ``label.features`` device span) over 0
+    and shorter than its device program."""
     from spalign_tpu_torch.utils import timers
 
-    gen = _cell_generator(cuda)
+    gen = _cell_generator(cuda, model_name)
     ds = _Frames(300, (224, 224))
     gen.process_dataset(ds)  # builds and warms every shape
     calls = []
@@ -366,6 +371,12 @@ def test_label_loop_never_synchronizes_and_times_its_units(cuda,
         u = s.ids["unit"]
         assert 0 < s.device_ns < end[u] - start[u]
     assert recs[0]["time_device_program"] > 0
+    backbone = [s for s in sp if s.name == "label.features"]
+    assert sorted({s.ids["unit"] for s in backbone}) == [0, 1]
+    for s in backbone:
+        program = [d for d in device if d.id == s.parent]
+        assert len(program) == 1 and 0 < s.device_ns < program[0].device_ns
+    assert timers.counts()["drn.images"] == 150 * len(backbone)
 
 def test_label_loop_takes_no_capture_after_its_warm_pass(cuda):
     """After a first pass over two units of 5 x 30 at 224^2, a second

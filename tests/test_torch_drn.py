@@ -30,7 +30,7 @@ def _flax_variables(name, hw, seed=1):
     return model, {"params": variables["params"], "batch_stats": stats}
 
 
-@pytest.mark.parametrize("name", ["drn_c_26", "drn_d_22"])
+@pytest.mark.parametrize("name", ["drn_c_26", "drn_d_22", "drn_d_105"])
 def test_stage_outputs_match_flax(name):
     hw = (64, 64)
     model, variables = _flax_variables(name, hw)
