@@ -30,6 +30,8 @@ labels of the all-K scan.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -74,6 +76,15 @@ def _init_centers(h: int, w: int, n_segments: int):
             step, gy, gx)
 
 
+@functools.lru_cache(maxsize=None)
+def grid_centers(h: int, w: int, n_segments: int,
+                 device: torch.device) -> torch.Tensor:
+    """``_init_centers``' (K, 2) float32 positions on ``device``, built
+    once an (h, w, n_segments, device): a copy from host memory would
+    wait for the device's queued work on every call."""
+    return torch.from_numpy(_init_centers(h, w, n_segments)[0]).to(device)
+
+
 def slic_grid_size(h: int, w: int, n_segments: int) -> int:
     """The exact number of superpixels :func:`slic` produces for an
     (h, w) image: the regular-grid centre count."""
@@ -87,10 +98,10 @@ def slic_inputs(images: torch.Tensor, n_segments: int = 100,
     grid centres L, a, b, y, x, dict(height, width, ratio, window))."""
     b, h, w, _ = images.shape
     dev = images.device
-    centers_yx, step, _, _ = _init_centers(h, w, n_segments)
-    k = centers_yx.shape[0]
+    step = _init_centers(h, w, n_segments)[1]
+    cyx = grid_centers(h, w, n_segments, dev)
+    k = cyx.shape[0]
     lab = rgb_to_lab(images.to(torch.float32) / 255.0)  # (B, H, W, 3)
-    cyx = torch.from_numpy(centers_yx).to(dev)
     # LAB sampled at the int-truncated grid positions
     iy = cyx[:, 0].to(torch.int64).clamp(0, h - 1)
     ix = cyx[:, 1].to(torch.int64).clamp(0, w - 1)

@@ -14,6 +14,7 @@ The label path reads stage 8's output: for a 224x224 input, a 512-channel
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -26,12 +27,20 @@ IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
+@functools.lru_cache(maxsize=None)
+def imagenet_stats(device: torch.device):
+    """(mean (3,), std (3,)) float32 on ``device``, built once a device:
+    a copy from host memory would wait for the device's queued work on
+    every call."""
+    return (torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device),
+            torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device))
+
+
 def preprocess_imagenet(x_rgb_0_255: torch.Tensor) -> torch.Tensor:
     """(..., 3) RGB in [0, 255] -> normalized float32
     (reference models/drn.py:304-321 batch_predict)."""
     x = x_rgb_0_255.to(torch.float32) / 255.0
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=x.device)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=x.device)
+    mean, std = imagenet_stats(x.device)
     return (x - mean) / std
 
 

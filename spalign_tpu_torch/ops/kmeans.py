@@ -120,17 +120,22 @@ def weighted_kmeans_from_init(X: torch.Tensor, weights: torch.Tensor,
                               valid: torch.Tensor, assign0: torch.Tensor,
                               k: int = 4, n_iter: int = 1000,
                               check_every: int = 16) -> KMeansResult:
-    """The Lloyd loop from an explicit initial assignment, in chunks of
-    ``check_every`` sweeps with the host's check between two chunks.  On
-    CUDA tensors a whole chunk is one replay of a CUDA graph of the
-    chunk's sweeps (``_LloydGraph``); a shorter last chunk and CPU
-    tensors run the sweeps one by one.  Counters: ``kmeans.chunks`` for
-    every chunk, ``kmeans.replays`` for the chunks a graph ran."""
-    if check_every < 1:
-        raise ValueError(f"check_every={check_every} must be >= 1")
+    """The Lloyd loop from an explicit initial assignment:
+    ``lloyd_start``, then ``lloyd_loop``."""
     (weights, valid, assign0), added = _grouped(weights, valid, assign0)
     if added:
         X = X[None]
+    res = lloyd_loop(*lloyd_start(X, weights, valid, assign0, k),
+                     n_iter=n_iter, check_every=check_every)
+    return KMeansResult(*(r[0] for r in res)) if added else res
+
+
+def lloyd_start(X: torch.Tensor, weights: torch.Tensor, valid: torch.Tensor,
+                assign0: torch.Tensor, k: int):
+    """The Lloyd loop's inputs (X, x2, weights, 1 - weights, valid,
+    arange(k)) and initial carries (assign, centers, it, done, converged,
+    empty_stop) of grouped (G, N, D) ``X``: device work only, so it can
+    be captured."""
     X = X.to(torch.float32).contiguous()
     weights = weights.to(torch.float32)
     dev = X.device
@@ -143,6 +148,20 @@ def weighted_kmeans_from_init(X: torch.Tensor, weights: torch.Tensor,
                _cluster_means(X, assign0, valid.to(torch.float32), k),
                torch.zeros(g, dtype=torch.int32, device=dev), done,
                torch.zeros_like(done), torch.zeros_like(done))
+    return inputs, carries
+
+
+def lloyd_loop(inputs, carries, n_iter: int = 1000,
+               check_every: int = 16) -> KMeansResult:
+    """The Lloyd loop of ``lloyd_start``'s inputs and carries, in chunks
+    of ``check_every`` sweeps with the host's check between two chunks.
+    On CUDA tensors a whole chunk is one replay of a CUDA graph of the
+    chunk's sweeps (``_LloydGraph``); a shorter last chunk and CPU
+    tensors run the sweeps one by one.  Counters: ``kmeans.chunks`` for
+    every chunk, ``kmeans.replays`` for the chunks a graph ran.  The
+    result shares no memory with ``carries`` or a graph."""
+    if check_every < 1:
+        raise ValueError(f"check_every={check_every} must be >= 1")
     graph = None
     t = 0
     while t < n_iter:
@@ -153,7 +172,7 @@ def weighted_kmeans_from_init(X: torch.Tensor, weights: torch.Tensor,
                 break
         m = min(check_every, n_iter - t)
         count("kmeans.chunks")
-        if X.is_cuda and m == check_every:
+        if inputs[0].is_cuda and m == check_every:
             if graph is None:
                 graph = _LloydGraph.load(inputs, carries, m)
             graph.graph.replay()
@@ -163,11 +182,9 @@ def weighted_kmeans_from_init(X: torch.Tensor, weights: torch.Tensor,
             for _ in range(m):
                 carries = _sweep(inputs, carries)
         t += m
-    if graph is not None:  # the next call's replays rewrite the buffers
-        carries = tuple(c.clone() for c in carries)
-    assign, centers, it, _, converged, empty_stop = carries
-    res = KMeansResult(assign, centers, it, converged, empty_stop)
-    return KMeansResult(*(r[0] for r in res)) if added else res
+    if graph is not None or t == 0:  # the next call's replays rewrite
+        carries = tuple(c.clone() for c in carries)  # a graph's buffers
+    return KMeansResult(*carries[:3], *carries[4:])
 
 
 def _sweep(inputs, carries):

@@ -3,10 +3,12 @@
 Counterpart of ``spalign_tpu/ops/segments.py``.  Every function takes
 per-image segment ids with any number of leading batch dimensions
 (``(..., N)`` or maps ``(..., H, W)``) and reduces each image on its own:
-ids are offset by ``image * num_segments`` and reduced with ``bincount``
-and ``index_add_`` in one call.  Float sums accumulate in float64 and
-round once to float32, so their order (atomics on the card) does not
-change the result.
+ids are offset by ``image * num_segments`` and reduced with ``index_add_``
+into ``B * num_segments`` bins in one call.  Counts are integer sums of
+ones, so they are exact and, unlike ``bincount`` on the card, read
+nothing back to the host (a unit's program can be captured as a CUDA
+graph).  Float sums accumulate in float64 and round once to float32, so
+their order (atomics on the card) does not change the result.
 """
 
 from __future__ import annotations
@@ -27,11 +29,17 @@ def _flat_ids(segment_ids: torch.Tensor, num_segments: int):
     return ids.reshape(-1), lead, b
 
 
+def _counts(ids: torch.Tensor, bins: int) -> torch.Tensor:
+    """(bins,) int64 occurrences of each flat id in [0, bins)."""
+    counts = torch.zeros(bins, dtype=torch.int64, device=ids.device)
+    return counts.index_add_(0, ids, torch.ones_like(ids))
+
+
 def segment_sizes(segment_ids: torch.Tensor,
                   num_segments: int) -> torch.Tensor:
     """(..., N) ids -> (..., S) int32 count of elements per segment."""
     ids, lead, b = _flat_ids(segment_ids, num_segments)
-    counts = torch.bincount(ids, minlength=b * num_segments)
+    counts = _counts(ids, b * num_segments)
     return counts.reshape(*lead, num_segments).to(torch.int32)
 
 
@@ -46,7 +54,7 @@ def segment_mean(data: torch.Tensor, segment_ids: torch.Tensor,
     sums = torch.zeros((b * num_segments, d.shape[1]), dtype=torch.float64,
                        device=d.device)
     sums.index_add_(0, ids, d)
-    counts = torch.bincount(ids, minlength=b * num_segments)
+    counts = _counts(ids, b * num_segments)
     out = sums / counts.clamp(min=1)[:, None].to(torch.float64)
     dtype = data.dtype if data.is_floating_point() else torch.float32
     out = out.to(dtype).reshape(*lead, num_segments, d.shape[1])

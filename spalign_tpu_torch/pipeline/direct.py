@@ -52,7 +52,7 @@ from spalign_tpu_torch.pipeline.label_gen import (KMEANS_CHECK_EVERY,
                                                   pack_mask_bits)
 from spalign_tpu_torch.pipeline.superpixels import (batched_slic_device,
                                                     batched_slic_device_yuv)
-from spalign_tpu_torch.utils.timers import StageTimer, span
+from spalign_tpu_torch.utils.timers import StageTimer, count, span
 
 
 def _pixel_features(feature_maps: torch.Tensor, prior_params):
@@ -153,6 +153,7 @@ class DirectLabelGenerator(LabelGeneratorBase):
         groups.  Under a group ``wire`` is this rank's shard and
         ``uniforms`` the whole unit's.  Returns device tensors road,
         cluster (this rank's rows) and the KMeansResult ``res``."""
+        count("label.units")
         fmaps = self.features(self.decode(wire))
         n, h, w, _ = fmaps.shape
         if uniforms is None:

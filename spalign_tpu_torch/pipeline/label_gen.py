@@ -24,6 +24,13 @@ The superpixels come from one of two frontends:
   producer thread, the maps uploaded narrowed; K is
   ``max_superpixels``, the padding bound.
 
+With the device SLIC frontend on a CUDA device and one rank, a unit's
+program from the wire to the start of the k-means loop is three CUDA
+graph replays (``_UnitGraphs``, captured on a unit shape's first use),
+and the loop itself replays its own graph (``ops/kmeans.py``): the host
+enqueues a unit with few launches and waits only for the k-means checks
+and the landing.
+
 Random draws (anchor bits and the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
 passed in (``UnitDraws``) so that tests can hand the port the JAX
@@ -69,9 +76,10 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import random
-from collections import deque
+from collections import OrderedDict, deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence
 
@@ -84,9 +92,11 @@ from spalign_tpu_torch.data.labels import create_label_mask, remap_label_ids
 from spalign_tpu_torch.data.png import write_png
 from spalign_tpu_torch.eval.results import ResultWriter
 from spalign_tpu_torch.kernels.slic import slic, slic_grid_size
+from spalign_tpu_torch.kernels.slic_fused import slic_lloyd
 from spalign_tpu_torch.models.drn import DRN_FACTORIES, preprocess_imagenet
 from spalign_tpu_torch.ops.align import superpixel_align
-from spalign_tpu_torch.ops.kmeans import (paint_clusters, weighted_kmeans,
+from spalign_tpu_torch.ops.kmeans import (kmeans_seed_assignment, lloyd_loop,
+                                          lloyd_start, paint_clusters,
                                           weighted_kmeans_from_init)
 from spalign_tpu_torch.ops.metrics import confusion_matrix
 from spalign_tpu_torch.ops.parity import (reference_seed_assignment,
@@ -132,6 +142,29 @@ def _align_and_prior(feature_maps, superpixels, n_anchors, s, append_pos,
     return feats, valid, prior
 
 
+def _kmeans_start(feats, valid, prior, uniforms, *, n_groups: int, k: int):
+    """The k-means of G groups up to its loop: the seeding assignment,
+    then the Lloyd loop's inputs and initial carries (``lloyd_start``)."""
+    X = feats.reshape(n_groups, -1, feats.shape[-1])
+    w, v = prior.reshape(n_groups, -1), valid.reshape(n_groups, -1)
+    assign0 = kmeans_seed_assignment(w, v, k, uniforms=uniforms)
+    return lloyd_start(X, w, v, assign0, k)
+
+
+def _paint_groups(superpixels, res, *, n_groups: int, num_segments: int,
+                  group=None):
+    """This rank's assignment, cluster maps and road masks from the
+    groups' KMeansResult, and ok (G,): every image of the group has a
+    non-empty road mask."""
+    n = superpixels.shape[0] * pdist.group_size(group)
+    assign = pdist.local_rows(res.assignment.reshape(n, num_segments), group)
+    cluster = paint_clusters(superpixels, assign)
+    road = cluster == 0
+    has_road = pdist.all_gather(road.flatten(1).any(1), group)
+    ok = has_road.reshape(n_groups, n // n_groups).all(1)
+    return road, cluster, assign, ok
+
+
 def cluster_groups(feature_maps: torch.Tensor, superpixels: torch.Tensor,
                    draws: UnitDraws, *, n_groups: int, n_anchors: int,
                    num_segments: int, append_pos: bool, k: int,
@@ -149,24 +182,18 @@ def cluster_groups(feature_maps: torch.Tensor, superpixels: torch.Tensor,
     Returns this rank's road_masks (B, H, W) bool, cluster_maps (B, H, W)
     int32 and assignment (B, S) int32, the per-group KMeansResult, and ok
     (G,) bool: every image of the group has a non-empty road mask."""
-    n = superpixels.shape[0] * pdist.group_size(group)
-    g, s = n_groups, num_segments
-    b = n // g
     superpixels = superpixels.to(torch.int32)
     feats, valid, prior = _align_and_prior(
-        feature_maps, superpixels, n_anchors, s, append_pos, prior_params,
-        pos_scale, pdist.local_rows(draws.anchor_bits, group))
+        feature_maps, superpixels, n_anchors, num_segments, append_pos,
+        prior_params, pos_scale, pdist.local_rows(draws.anchor_bits, group))
     feats, valid, prior = (pdist.all_gather(t, group)
                            for t in (feats, valid, prior))
-    res = weighted_kmeans(feats.reshape(g, b * s, -1), prior.reshape(g, -1),
-                          valid.reshape(g, -1), k=k, n_iter=n_iter,
-                          uniforms=draws.uniforms,
-                          check_every=KMEANS_CHECK_EVERY)
-    assign = pdist.local_rows(res.assignment.reshape(n, s), group)
-    cluster = paint_clusters(superpixels, assign)
-    road = cluster == 0
-    has_road = pdist.all_gather(road.flatten(1).any(1), group)
-    ok = has_road.reshape(g, b).all(1)
+    res = lloyd_loop(*_kmeans_start(feats, valid, prior, draws.uniforms,
+                                    n_groups=n_groups, k=k),
+                     n_iter=n_iter, check_every=KMEANS_CHECK_EVERY)
+    road, cluster, assign, ok = _paint_groups(
+        superpixels, res, n_groups=n_groups, num_segments=num_segments,
+        group=group)
     return road, cluster, assign, res, ok
 
 
@@ -198,6 +225,15 @@ def draw_unit(seeds: Sequence[int], images_per_group: int, hw: int,
     return UnitDraws(torch.cat(bits), torch.stack(unif))
 
 
+@functools.lru_cache(maxsize=None)
+def bit_weights(device: torch.device) -> torch.Tensor:
+    """(8,) int32 weights of a byte's bits, most significant first, on
+    ``device``, built once a device: a copy from host memory would wait
+    for the device's queued work on every call."""
+    return torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                        device=device)
+
+
 def pack_mask_bits(mask_bool: torch.Tensor) -> torch.Tensor:
     """(..., W) bool -> (..., ceil(W/8)) uint8, np.unpackbits bit order."""
     w = mask_bool.shape[-1]
@@ -206,9 +242,7 @@ def pack_mask_bits(mask_bool: torch.Tensor) -> torch.Tensor:
     if pad:
         m = torch.nn.functional.pad(m, (0, pad))
     m = m.reshape(*m.shape[:-1], -1, 8)
-    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
-                           device=m.device)
-    return (m * weights).sum(-1).to(torch.uint8)
+    return (m * bit_weights(m.device)).sum(-1).to(torch.uint8)
 
 
 def unpack_mask_bits(packed: np.ndarray, w: int) -> np.ndarray:
@@ -408,10 +442,12 @@ class LabelGeneratorBase:
 
     def _configure(self):
         """What the generator derives from self.cfg (the subclasses add
-        their superpixel geometry)."""
+        their superpixel geometry); the unit graphs captured under the
+        previous config go."""
         p = self.cfg.prior
         self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
                               p.x_rel_sigma)
+        self._graphs: "OrderedDict[tuple, _UnitGraphs]" = OrderedDict()
 
     def _check_k(self, cfg: LabelGenConfig):
         if self.dynamic_k is not None and cfg.kmeans.n_clusters > \
@@ -472,8 +508,18 @@ class LabelGeneratorBase:
     @torch.no_grad()
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) RGB 0..255 on the device -> (B, hf, wf, C)
-        float32 concatenated DRN maps; counts the images (``drn.images``)."""
+        float32 concatenated DRN maps; counts the images (``drn.images``).
+        The decoded images of a graphed unit (``_UnitGraphs``) replay its
+        backbone graph and give that graph's output buffer."""
         count("drn.images", int(images.shape[0]))
+        for graphs in self._graphs.values():
+            if images is graphs.images:
+                graphs.graphs[1].replay()
+                return graphs.feats
+        return self.backbone(images)
+
+    def backbone(self, images: torch.Tensor) -> torch.Tensor:
+        """The DRN of ``features``, device work only."""
         x = preprocess_imagenet(images)
         return self.model.features(x, self.cfg.use_feature_maps)
 
@@ -838,7 +884,13 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         this rank's shard and ``draws`` the whole unit's.  Returns device
         tensors (this rank's rows): road,
         road_packed, cluster, assign, the KMeansResult ``res``, per-group
-        ``ok`` and the superpixel maps."""
+        ``ok`` and the superpixel maps.  Where ``_graphed`` holds, the
+        program up to the k-means loop is three CUDA graph replays
+        (``_replay_unit``).  Counters: ``label.units`` every call,
+        ``label.unit_replays`` the replayed ones."""
+        count("label.units")
+        if self._graphed(sps):
+            return self._replay_unit(wire, seeds, draws)
         cfg = self.cfg
         with span("label.decode"):
             images = self.decode(wire)
@@ -867,6 +919,68 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}
 
+    def _graphed(self, sps) -> bool:
+        """Whether ``run_unit`` replays the unit's program up to the
+        k-means loop as CUDA graphs: where that program has no host input
+        and no collective, i.e. on a CUDA device, with the device SLIC
+        frontend and on one rank."""
+        return (sps is None and self.device.type == "cuda"
+                and self.group is None and fused_superpixels(self.cfg))
+
+    def _replay_unit(self, wire: torch.Tensor, seeds: Sequence[int],
+                     draws: Optional[UnitDraws]) -> dict:
+        """``run_unit`` by replays of the unit's three graphs
+        (``_UnitGraphs``, captured on the shape's first unit); the draws
+        are made eagerly and copied in, the Lloyd loop and what follows
+        run as in ``cluster_groups``.  The same results, bit for bit; none
+        of the returned tensors is a graph's buffer."""
+        cfg = self.cfg
+        g = len(seeds)
+        if draws is None:
+            draws = draw_unit(seeds, wire.shape[0] // g,
+                              self._sp_hw[0] * self._sp_hw[1],
+                              self.num_segments, self.device)
+        graphs = self._unit_graphs(wire, draws, g)
+        with span("label.decode"):
+            graphs.wire.copy_(wire)
+        with span("label.superpixels"):
+            graphs.graphs[0].replay()
+            slic_lloyd.launches += graphs.slic_launches
+        with device_span("label.features", self.device):
+            fmaps = self.features(graphs.images)
+        with span("label.cluster"):
+            if fmaps is not graphs.feats:  # ``features`` is wrapped
+                graphs.feats.copy_(fmaps)
+            graphs.anchor_bits.copy_(draws.anchor_bits)
+            graphs.uniforms.copy_(draws.uniforms)
+            graphs.graphs[2].replay()
+            res = lloyd_loop(graphs.inputs, graphs.carries,
+                             n_iter=cfg.kmeans.n_iter,
+                             check_every=KMEANS_CHECK_EVERY)
+            road, cluster, assign, ok = _paint_groups(
+                graphs.sps, res, n_groups=g, num_segments=self.num_segments)
+        with span("label.pack"):
+            packed = pack_mask_bits(road)
+        count("label.unit_replays")
+        return {"road": road, "road_packed": packed,
+                "cluster": cluster, "assign": assign, "res": res, "ok": ok,
+                "superpixels": graphs.sps.clone()}
+
+    def _unit_graphs(self, wire: torch.Tensor, draws: UnitDraws,
+                     n_groups: int) -> "_UnitGraphs":
+        """The unit graphs of this wire's shape, the draws' and the group
+        count, captured on their first use; the newest
+        ``_UnitGraphs.CACHE`` are kept."""
+        key = (tuple(wire.shape), wire.dtype, n_groups,
+               *((tuple(t.shape), t.dtype) for t in draws))
+        graphs = self._graphs.pop(key, None)
+        if graphs is None:
+            graphs = _UnitGraphs(self, wire, draws, n_groups)
+        self._graphs[key] = graphs
+        while len(self._graphs) > _UnitGraphs.CACHE:
+            self._graphs.popitem(last=False)
+        return graphs
+
     @torch.no_grad()
     def run_parity(self, prepared: dict, timers: StageTimer) -> dict:
         """The bit-parity unit (one clustering group), every random draw
@@ -887,6 +1001,7 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         every rank's masks, so every rank takes the same retry decision
         and its streams stay the one rank's.  Returns the device tensors
         of ``run_unit`` (this rank's rows)."""
+        count("label.units")
         cfg = self.cfg
         s = self.num_segments
         if "parity" not in prepared:
@@ -1007,3 +1122,71 @@ class SpalignLabelGenerator(LabelGeneratorBase):
             },
         }
         return handles["road"], handles["cluster"], diag
+
+
+class _UnitGraphs:
+    """A spalign unit's program from the uploaded wire to the start of
+    the k-means loop as three CUDA graphs, captured back to back into one
+    memory pool and replayed in that order: (0) decode + device SLIC,
+    (1) the backbone (``backbone``), (2) align + prior + the k-means
+    seeding, the loop's inputs and initial carries (``_kmeans_start``).
+    Each graph reads the static buffers of those before it; a unit
+    copies its wire and draws into ``wire``, ``anchor_bits`` and
+    ``uniforms`` first.  An eager run on a side stream first keeps lazy
+    initialisation (cuDNN and cuBLAS handles, kernel builds, the cached
+    constants) out of the graphs.  A graph holds its generator's weights
+    by address, so the generator keeps its own graphs and drops them with
+    its config (``_configure``); calls must come from one thread.
+    ``slic_launches`` is the Lloyd kernel launches a replay of (0) makes,
+    so that ``slic_lloyd.launches`` goes on counting the kernel's runs."""
+
+    CACHE = 4
+
+    def __init__(self, gen: SpalignLabelGenerator, wire: torch.Tensor,
+                 draws: UnitDraws, n_groups: int):
+        self.wire = wire.clone()
+        self.anchor_bits, self.uniforms = (t.clone() for t in draws)
+        stages = (functools.partial(self._superpixels, gen),
+                  functools.partial(self._backbone, gen),
+                  functools.partial(self._start, gen, n_groups))
+        dev = wire.device
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        launches = slic_lloyd.launches
+        self.graphs, pool = [], None
+        with torch.cuda.stream(side):
+            for stage in stages:
+                stage()
+            launches_eager = slic_lloyd.launches
+            # thread_local: the label loop's producer thread goes on
+            # uploading while this thread captures
+            for stage in stages:
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    stage()
+                finally:
+                    graph.capture_end()
+                self.graphs.append(graph)
+                pool = graph.pool()
+        self.slic_launches = launches_eager - launches
+        slic_lloyd.launches = launches_eager  # a capture runs nothing
+        torch.cuda.current_stream(dev).wait_stream(side)
+
+    def _superpixels(self, gen):
+        self.images = gen.decode(self.wire)
+        self.sps = gen.superpixels(self.images)
+
+    def _backbone(self, gen):
+        self.feats = gen.backbone(self.images)
+
+    def _start(self, gen, n_groups):
+        cfg = gen.cfg
+        feats, valid, prior = _align_and_prior(
+            self.feats, self.sps, cfg.align.n_anchors, gen.num_segments,
+            cfg.align.append_pos, gen._prior_params, float(gen._downscale),
+            self.anchor_bits)
+        self.inputs, self.carries = _kmeans_start(
+            feats, valid, prior, self.uniforms, n_groups=n_groups,
+            k=cfg.kmeans.n_clusters)

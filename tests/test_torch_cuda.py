@@ -381,7 +381,8 @@ def test_label_loop_never_synchronizes_and_times_its_units(cuda,
 def test_label_loop_takes_no_capture_after_its_warm_pass(cuda):
     """After a first pass over two units of 5 x 30 at 224^2, a second
     pass runs every k-means chunk as a replay of the graph the first
-    captured, and captures none."""
+    captured, every unit's program before the k-means as replays of the
+    unit graphs the first captured, and captures none."""
     from spalign_tpu_torch.ops import kmeans as tkm
     from spalign_tpu_torch.utils import timers
 
@@ -389,11 +390,164 @@ def test_label_loop_takes_no_capture_after_its_warm_pass(cuda):
     ds = _Frames(300, (224, 224))
     gen.process_dataset(ds)
     graphs = list(tkm._GRAPHS.items())
+    unit_graphs = list(gen._graphs.items())
+    assert len(unit_graphs) == 1
     timers.reset()
     gen.process_dataset(ds)
     c = timers.counts()
     assert c["kmeans.chunks"] == c["kmeans.replays"] >= 2
     assert list(tkm._GRAPHS.items()) == graphs
+    assert c["label.units"] == c["label.unit_replays"] >= 2
+    assert list(gen._graphs.items()) == unit_graphs
+
+
+# ---- a unit's program before the k-means as CUDA graph replays
+# (pipeline/label_gen.py _UnitGraphs) ----
+
+
+def _wire(dev, n, seed):
+    from spalign_tpu_torch import native
+
+    frames = _Frames(n, (224, 224), seed).frames
+    return torch.from_numpy(native.pack_yuv420(frames)).to(dev)
+
+
+def _run(gen, wire, seeds):
+    """A unit's device tensors, with the features ``features`` gave."""
+    feats = []
+    real = gen.features
+
+    def keep(images):
+        feats.append(real(images).clone())
+        return feats[-1]
+
+    gen.features = keep
+    try:
+        out = gen.run_unit(wire, seeds)
+    finally:
+        del gen.features
+    return dict(out, features=feats[0], n_iter=out["res"].n_iter)
+
+
+_COMPARED = ("road_packed", "cluster", "assign", "features", "superpixels",
+             "n_iter")
+
+
+def _assert_units_equal(got, want):
+    for name in _COMPARED:
+        torch.testing.assert_close(got[name], want[name], rtol=0, atol=0,
+                                   msg=name)
+
+
+def _eager(gen, monkeypatch):
+    monkeypatch.setattr(gen, "_graphed", lambda sps: False)
+    return gen
+
+
+@pytest.mark.parametrize("model_name,groups,batch", [
+    ("drn_c_26", 5, 30), ("drn_d_105", 2, 6)])
+def test_graphed_unit_equals_the_eager_unit(cuda, monkeypatch, model_name,
+                                            groups, batch):
+    """The drn26-spalign-slic cell's unit (5 x 30 at 224^2) and a small
+    DRN-D-105 unit (2 x 6), graphed (the capturing call and a replay)
+    and eager: equal packed masks, cluster maps, assignments, features,
+    superpixel maps and k-means sweeps, bit for bit."""
+    import dataclasses
+
+    from spalign_tpu_torch.utils import timers
+
+    gen = _cell_generator(cuda, model_name)
+    gen.reconfigure(dataclasses.replace(gen.cfg, batchsize=batch,
+                                        groups_per_dispatch=groups))
+    wire = _wire(cuda, groups * batch, 1)
+    seeds = [np.uint32(11 + g) for g in range(groups)]
+    timers.reset()
+    first = _run(gen, wire, seeds)
+    second = _run(gen, wire, seeds)
+    c = timers.counts()
+    assert c["label.units"] == c["label.unit_replays"] == 2
+    assert len(gen._graphs) == 1
+    want = _run(_eager(gen, monkeypatch), wire, seeds)
+    assert timers.counts()["label.unit_replays"] == 2
+    _assert_units_equal(first, want)
+    _assert_units_equal(second, want)
+
+
+def test_graphed_units_never_alias_the_graph_buffers(cuda, monkeypatch):
+    """Two units of the cell's shape with other wires and seeds back to
+    back, then a retry of the first with fresh seeds: the first unit's
+    results are unchanged after the others ran, no returned tensor lies
+    in a graph's static buffers, and each unit equals its eager run."""
+    gen = _cell_generator(cuda)
+    wires = [_wire(cuda, 150, 2), _wire(cuda, 150, 3)]
+    runs = [(wires[0], [np.uint32(21 + g) for g in range(5)]),
+            (wires[1], [np.uint32(31 + g) for g in range(5)]),
+            (wires[0], [np.uint32(41 + g) for g in range(5)])]
+    outs = [_run(gen, w, s) for w, s in runs[:1]]
+    kept = {k: outs[0][k].clone() for k in _COMPARED}
+    outs += [_run(gen, w, s) for w, s in runs[1:]]
+    (graphs,) = gen._graphs.values()
+    static = [graphs.wire, graphs.anchor_bits, graphs.uniforms,
+              graphs.images, graphs.sps, graphs.feats, *graphs.inputs,
+              *graphs.carries]
+    spans = [(t.untyped_storage().data_ptr(),
+              t.untyped_storage().data_ptr() + t.untyped_storage().nbytes())
+             for t in static]
+    for out in outs:
+        for name, t in out.items():
+            ts = t if isinstance(t, tuple) else (t,)
+            for x in ts:
+                p = x.untyped_storage().data_ptr()
+                assert not any(lo <= p < hi for lo, hi in spans), name
+    torch.cuda.synchronize()
+    _assert_units_equal(outs[0], kept)
+    eager = _eager(gen, monkeypatch)
+    for out, (w, s) in zip(outs, runs):
+        _assert_units_equal(out, _run(eager, w, s))
+
+
+def test_unit_dispatch_reads_nothing_back(cuda, monkeypatch):
+    """After the warm pass, a pass of two units of 5 x 30 at 224^2 runs
+    under ``torch.cuda.set_sync_debug_mode("error")``: nothing the label
+    loop does waits for the card but the host's k-means checks
+    (``kmeans.check``) and the landing of a unit's results
+    (``label.land``)."""
+    import contextlib
+
+    from spalign_tpu_torch.ops import kmeans as tkm
+    from spalign_tpu_torch.pipeline import label_gen as tlg
+
+    gen = _cell_generator(cuda)
+    ds = _Frames(300, (224, 224))
+    gen.process_dataset(ds)
+    waits = []
+
+    def allowing(real):
+        def span(name, **ids):
+            if name not in ("kmeans.check", "label.land"):
+                return real(name, **ids)
+            return allowed(real(name, **ids), name)
+        return span
+
+    @contextlib.contextmanager
+    def allowed(inner, name):
+        waits.append(name)
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            with inner:
+                yield
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(tkm, "span", allowing(tkm.span))
+    monkeypatch.setattr(tlg, "span", allowing(tlg.span))
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        recs = gen.process_dataset(ds)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(recs) == 300
+    assert waits.count("label.land") >= 2 and "kmeans.check" in waits
 
 
 # ---- the k-means Lloyd loop as CUDA graph replays (ops/kmeans.py) ----
