@@ -19,17 +19,17 @@ package's vmapped ``while_loop`` does.  The host checks whether every
 group has stopped only every ``check_every`` sweeps (one device sync
 each, a ``kmeans.check`` span); the results do not depend on it.  On
 CUDA tensors each chunk of ``check_every`` sweeps is one replay of a
-CUDA graph, so the chunk costs the host one launch instead of ~41 a
-sweep.  Padded rows (``valid`` False) carry weight 0 and assignment -1.
+CUDA graph (``utils/graphs.py``), so the chunk costs the host one launch
+instead of ~41 a sweep.  Padded rows (``valid`` False) carry weight 0 and assignment -1.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import torch
 
+from spalign_tpu_torch.utils.graphs import GraphCache
 from spalign_tpu_torch.utils.timers import count, span
 
 
@@ -156,7 +156,7 @@ def lloyd_loop(inputs, carries, n_iter: int = 1000,
     """The Lloyd loop of ``lloyd_start``'s inputs and carries, in chunks
     of ``check_every`` sweeps with the host's check between two chunks.
     On CUDA tensors a whole chunk is one replay of a CUDA graph of the
-    chunk's sweeps (``_LloydGraph``); a shorter last chunk and CPU
+    chunk's sweeps (``_chunk_graph``); a shorter last chunk and CPU
     tensors run the sweeps one by one.  Counters: ``kmeans.chunks`` for
     every chunk, ``kmeans.replays`` for the chunks a graph ran.  The
     result shares no memory with ``carries`` or a graph."""
@@ -174,9 +174,9 @@ def lloyd_loop(inputs, carries, n_iter: int = 1000,
         count("kmeans.chunks")
         if inputs[0].is_cuda and m == check_every:
             if graph is None:
-                graph = _LloydGraph.load(inputs, carries, m)
-            graph.graph.replay()
-            carries = graph.carries
+                graph = _chunk_graph(inputs, carries, m)
+            graph.replay(0)
+            carries = graph.bufs["carries"]
             count("kmeans.replays")
         else:
             for _ in range(m):
@@ -213,58 +213,25 @@ def _sweep(inputs, carries):
     return assign, centers, it, done, converged, empty_stop
 
 
-class _LloydGraph:
-    """A chunk of ``length`` sweeps captured as one CUDA graph over
-    static copies of the loop's inputs and carries; a replay leaves the
-    chunk's carries in ``carries``.  One graph a (device, shape, k,
-    length, dtypes), the newest ``CACHE`` kept (``_GRAPHS``).  Capture
-    synchronizes the card and empties the allocator's caches, so it is
-    made on a shape's first use only; later calls copy their inputs and
-    initial carries in, so calls of one shape must not run concurrently
-    from two threads (the label loop runs the k-means on one)."""
+def _chunk_graph(inputs, carries, length: int):
+    """The CUDA graph of ``length`` sweeps (one a device, shape, k, length
+    and dtypes; the newest 8 kept), holding these inputs and carries; a
+    replay leaves the chunk's carries in its ``carries`` buffers."""
+    def chunk(b):
+        out = b["carries"]
+        for _ in range(length):
+            out = _sweep(b["inputs"], out)
+        for dst, src in zip(b["carries"], out):
+            dst.copy_(src)
+        return {}
 
-    CACHE = 8
-
-    def __init__(self, inputs, carries, length):
-        self.inputs = tuple(t.clone() for t in inputs)
-        self.carries = tuple(t.clone() for t in carries)
-        self.graph = torch.cuda.CUDAGraph()
-        side = torch.cuda.Stream(self.inputs[0].device)
-        side.wait_stream(torch.cuda.current_stream(side.device))
-        with torch.cuda.stream(side):  # lazy inits stay out of the graph
-            _sweep(self.inputs, self.carries)
-        # thread_local: other threads (the label loop's producer) go on
-        # uploading while this thread captures
-        with torch.cuda.graph(self.graph, stream=side,
-                              capture_error_mode="thread_local"):
-            out = self.carries
-            for _ in range(length):
-                out = _sweep(self.inputs, out)
-            for dst, src in zip(self.carries, out):
-                dst.copy_(src)
-
-    @classmethod
-    def load(cls, inputs, carries, length) -> "_LloydGraph":
-        """The graph of this chunk's key, holding these inputs and
-        carries."""
-        X, _, _, _, valid, ks = inputs
-        key = (X.device, *X.shape, len(ks), length, X.dtype, valid.dtype,
-               carries[0].dtype)
-        graph = _GRAPHS.pop(key, None)
-        if graph is None:
-            with torch.cuda.device(X.device):
-                graph = cls(inputs, carries, length)
-        else:
-            for dst, src in zip(graph.inputs + graph.carries,
-                                inputs + carries):
-                dst.copy_(src)
-        _GRAPHS[key] = graph
-        while len(_GRAPHS) > cls.CACHE:
-            _GRAPHS.popitem(last=False)
-        return graph
+    X, _, _, _, valid, ks = inputs
+    key = (X.device, *X.shape, len(ks), length, X.dtype, valid.dtype,
+           carries[0].dtype)
+    return _GRAPHS.load(key, (chunk,), {"inputs": inputs, "carries": carries})
 
 
-_GRAPHS: "OrderedDict[tuple, _LloydGraph]" = OrderedDict()
+_GRAPHS = GraphCache(8, counted=())
 
 
 def paint_clusters(superpixels: torch.Tensor,

@@ -187,13 +187,7 @@ class DirectLabelGenerator(LabelGeneratorBase):
                 handles["packed_upscale"] = upscale
             else:
                 handles["road_packed"] = pack_mask_bits(handles["road"])
-            res = handles["res"]
-            fetch = {"road_packed": handles["road_packed"],
-                     "n_iter": res.n_iter, "converged": res.converged,
-                     "empty_stop": res.empty_stop}
-            if self._want_cluster_np:
-                fetch["cluster"] = handles["cluster"].to(torch.uint8)
-            handles["_host"] = self._to_host(fetch)
+            self._send(handles)
         return handles
 
     def finish_batch(self, prepared: dict, handles: dict,
@@ -201,11 +195,7 @@ class DirectLabelGenerator(LabelGeneratorBase):
         with timers.stage("kmeans"):
             got = self._landed(handles)
         handles["host"] = got
-        diag = {"_per_group": {
-            "kmeans_iters": got["n_iter"].astype(int).tolist(),
-            "kmeans_converged": got["converged"].astype(bool).tolist(),
-            "kmeans_empty_stop": got["empty_stop"].astype(bool).tolist(),
-        }}
+        diag = {"_per_group": self._kmeans_diagnostics(got)}
         if "counts" in prepared:
             diag["n_superpixels"] = self._unit_counts(prepared["counts"])
         return handles["road"], handles["cluster"], diag

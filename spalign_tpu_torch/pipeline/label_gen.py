@@ -24,12 +24,13 @@ The superpixels come from one of two frontends:
   producer thread, the maps uploaded narrowed; K is
   ``max_superpixels``, the padding bound.
 
-With the device SLIC frontend on a CUDA device and one rank, a unit's
-program from the wire to the start of the k-means loop is three CUDA
-graph replays (``_UnitGraphs``, captured on a unit shape's first use),
-and the loop itself replays its own graph (``ops/kmeans.py``): the host
-enqueues a unit with few launches and waits only for the k-means checks
-and the landing.
+A unit's program is written once, as three stages and a tail
+(``run_unit``).  With the device SLIC frontend on a CUDA device and one
+rank, the stages are replays of CUDA graphs captured on a unit shape's
+first use (``utils/graphs.py``, the port's one capture module), and the
+Lloyd loop of the tail replays its own graph (``ops/kmeans.py``): the
+host enqueues a unit with few launches and waits only for the k-means
+checks and the landing.  Everywhere else the stages are called.
 
 Random draws (anchor bits and the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
@@ -79,7 +80,7 @@ import dataclasses
 import functools
 import os
 import random
-from collections import OrderedDict, deque
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple, Optional, Sequence
 
@@ -108,7 +109,8 @@ from spalign_tpu_torch.ops.segments import draw_anchor_bits
 from spalign_tpu_torch.parallel import dist as pdist
 from spalign_tpu_torch.pipeline.superpixels import compute_superpixels
 from spalign_tpu_torch.pipeline.wire import decode_yuv420
-from spalign_tpu_torch.utils.device import resolve_device
+from spalign_tpu_torch.utils.device import full_float32, resolve_device
+from spalign_tpu_torch.utils.graphs import GraphCache
 from spalign_tpu_torch.utils.timers import (StageTimer, count, device_span,
                                             span)
 from spalign_tpu_torch.utils.viz import save_diagnostic_panel
@@ -131,38 +133,38 @@ class UnitDraws(NamedTuple):
     uniforms: torch.Tensor
 
 
-def _align_and_prior(feature_maps, superpixels, n_anchors, s, append_pos,
-                     prior_params, pos_scale, anchor_bits):
-    """Per-superpixel aligned features + segment-mean prior of a batch:
-    (feats (B, S, C'), valid (B, S), prior (B, S))."""
+def _cluster_start(feature_maps, superpixels, draws: UnitDraws, *,
+                   n_groups: int, n_anchors: int, num_segments: int,
+                   append_pos: bool, k: int, prior_params, pos_scale: float,
+                   group):
+    """Align + prior of this rank's rows, the k-means inputs all-gathered
+    under a group, the seeding of G groups: the Lloyd loop's inputs and
+    initial carries (``lloyd_start``); capturable without a group."""
     feats, valid = superpixel_align(
-        feature_maps, superpixels, n_anchors, s, append_pos=append_pos,
-        pos_scale=pos_scale, random_bits=anchor_bits)
-    prior = superpixel_prior(superpixels, s, *prior_params)
-    return feats, valid, prior
-
-
-def _kmeans_start(feats, valid, prior, uniforms, *, n_groups: int, k: int):
-    """The k-means of G groups up to its loop: the seeding assignment,
-    then the Lloyd loop's inputs and initial carries (``lloyd_start``)."""
+        feature_maps, superpixels, n_anchors, num_segments,
+        append_pos=append_pos, pos_scale=pos_scale,
+        random_bits=pdist.local_rows(draws.anchor_bits, group))
+    prior = superpixel_prior(superpixels, num_segments, *prior_params)
+    feats, valid, prior = (pdist.all_gather(t, group)
+                           for t in (feats, valid, prior))
     X = feats.reshape(n_groups, -1, feats.shape[-1])
     w, v = prior.reshape(n_groups, -1), valid.reshape(n_groups, -1)
-    assign0 = kmeans_seed_assignment(w, v, k, uniforms=uniforms)
+    assign0 = kmeans_seed_assignment(w, v, k, uniforms=draws.uniforms)
     return lloyd_start(X, w, v, assign0, k)
 
 
-def _paint_groups(superpixels, res, *, n_groups: int, num_segments: int,
-                  group=None):
-    """This rank's assignment, cluster maps and road masks from the
-    groups' KMeansResult, and ok (G,): every image of the group has a
-    non-empty road mask."""
+def _cluster_tail(start, superpixels, *, n_groups: int, num_segments: int,
+                  n_iter: int, group):
+    """The Lloyd loop from ``_cluster_start``, then painting: the return
+    of ``cluster_groups``."""
+    res = lloyd_loop(*start, n_iter=n_iter, check_every=KMEANS_CHECK_EVERY)
     n = superpixels.shape[0] * pdist.group_size(group)
     assign = pdist.local_rows(res.assignment.reshape(n, num_segments), group)
     cluster = paint_clusters(superpixels, assign)
     road = cluster == 0
     has_road = pdist.all_gather(road.flatten(1).any(1), group)
     ok = has_road.reshape(n_groups, n // n_groups).all(1)
-    return road, cluster, assign, ok
+    return road, cluster, assign, res, ok
 
 
 def cluster_groups(feature_maps: torch.Tensor, superpixels: torch.Tensor,
@@ -183,18 +185,14 @@ def cluster_groups(feature_maps: torch.Tensor, superpixels: torch.Tensor,
     int32 and assignment (B, S) int32, the per-group KMeansResult, and ok
     (G,) bool: every image of the group has a non-empty road mask."""
     superpixels = superpixels.to(torch.int32)
-    feats, valid, prior = _align_and_prior(
-        feature_maps, superpixels, n_anchors, num_segments, append_pos,
-        prior_params, pos_scale, pdist.local_rows(draws.anchor_bits, group))
-    feats, valid, prior = (pdist.all_gather(t, group)
-                           for t in (feats, valid, prior))
-    res = lloyd_loop(*_kmeans_start(feats, valid, prior, draws.uniforms,
-                                    n_groups=n_groups, k=k),
-                     n_iter=n_iter, check_every=KMEANS_CHECK_EVERY)
-    road, cluster, assign, ok = _paint_groups(
-        superpixels, res, n_groups=n_groups, num_segments=num_segments,
-        group=group)
-    return road, cluster, assign, res, ok
+    start = _cluster_start(
+        feature_maps, superpixels, draws, n_groups=n_groups,
+        n_anchors=n_anchors, num_segments=num_segments,
+        append_pos=append_pos, k=k, prior_params=prior_params,
+        pos_scale=pos_scale, group=group)
+    return _cluster_tail(start, superpixels, n_groups=n_groups,
+                         num_segments=num_segments, n_iter=n_iter,
+                         group=group)
 
 
 def spalign_cluster(feature_maps: torch.Tensor, superpixels: torch.Tensor,
@@ -398,11 +396,7 @@ class LabelGeneratorBase:
         self._check_k(cfg)
         self._validate(cfg)
         self.cfg = cfg
-        if self.device.type == "cuda":
-            # stated, not inherited: float32 convolutions and matmuls run
-            # in full float32 (cuDNN would otherwise use TF32)
-            torch.backends.cudnn.allow_tf32 = False
-            torch.backends.cuda.matmul.allow_tf32 = False
+        full_float32(self.device)
         self._model_name, self._state_dict = model_name, state_dict
         self.model = self._build_model(self._model_dtype(cfg))
         seed = cfg.kmeans.seed if seed is None else seed
@@ -443,11 +437,12 @@ class LabelGeneratorBase:
     def _configure(self):
         """What the generator derives from self.cfg (the subclasses add
         their superpixel geometry); the unit graphs captured under the
-        previous config go."""
+        previous config go (a graph holds the weights by address)."""
         p = self.cfg.prior
         self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
                               p.x_rel_sigma)
-        self._graphs: "OrderedDict[tuple, _UnitGraphs]" = OrderedDict()
+        self._graphs = GraphCache(4, counted=(slic_lloyd,))  # 4 shapes
+        self._unit = None  # the graphed unit in flight
 
     def _check_k(self, cfg: LabelGenConfig):
         if self.dynamic_k is not None and cfg.kmeans.n_clusters > \
@@ -509,13 +504,13 @@ class LabelGeneratorBase:
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) RGB 0..255 on the device -> (B, hf, wf, C)
         float32 concatenated DRN maps; counts the images (``drn.images``).
-        The decoded images of a graphed unit (``_UnitGraphs``) replay its
-        backbone graph and give that graph's output buffer."""
+        The decoded images of the graphed unit in flight (``run_unit``)
+        replay its backbone graph and give that graph's output buffer."""
         count("drn.images", int(images.shape[0]))
-        for graphs in self._graphs.values():
-            if images is graphs.images:
-                graphs.graphs[1].replay()
-                return graphs.feats
+        unit = self._unit
+        if unit is not None and images is unit.bufs["images"]:
+            unit.replay(1)
+            return unit.bufs["feats"]
         return self.backbone(images)
 
     def backbone(self, images: torch.Tensor) -> torch.Tensor:
@@ -619,6 +614,27 @@ class LabelGeneratorBase:
             if landed is not None:
                 landed.synchronize()
             return {name: t.numpy() for name, t in host.items()}
+
+    def _send(self, handles: dict, **extra):
+        """Start a unit's results to the host (``_to_host``, under
+        ``"_host"``): the packed masks, ``extra``, the k-means diagnostics
+        and, when masks are saved, the cluster maps as uint8."""
+        res = handles["res"]
+        fetch = {"road_packed": handles["road_packed"], **extra,
+                 "n_iter": res.n_iter, "converged": res.converged,
+                 "empty_stop": res.empty_stop}
+        if self._want_cluster_np:
+            fetch["cluster"] = handles["cluster"].to(torch.uint8)
+        handles["_host"] = self._to_host(fetch)
+
+    @staticmethod
+    def _kmeans_diagnostics(got: dict) -> dict:
+        """The per-group k-means diagnostics of a landed unit, the
+        ``_per_group`` lists of ``finish_batch``."""
+        return {"kmeans_iters": got["n_iter"].astype(int).tolist(),
+                "kmeans_converged": got["converged"].astype(bool).tolist(),
+                "kmeans_empty_stop": got["empty_stop"].astype(
+                    bool).tolist()}
 
     def dispatch_batch(self, prepared: dict, timers: StageTimer) -> dict:
         raise NotImplementedError
@@ -881,105 +897,94 @@ class SpalignLabelGenerator(LabelGeneratorBase):
         """The whole device program of one unit: G = len(seeds) groups.
         ``sps``: the host engine's maps (ids < max_superpixels); None runs
         the device SLIC frontend.  Under a group, ``wire`` and ``sps`` are
-        this rank's shard and ``draws`` the whole unit's.  Returns device
-        tensors (this rank's rows): road,
+        this rank's shard and ``draws`` the whole unit's.  Three stages --
+        decode + superpixels, the backbone (``features``), align + prior +
+        the k-means seeding (``_start``) -- are called, or, where
+        ``_graphed`` holds, replayed (``_unit_graph``); the Lloyd loop,
+        painting and packing follow either way.  Returns device tensors
+        (this rank's rows), none of them a graph's buffer: road,
         road_packed, cluster, assign, the KMeansResult ``res``, per-group
-        ``ok`` and the superpixel maps.  Where ``_graphed`` holds, the
-        program up to the k-means loop is three CUDA graph replays
-        (``_replay_unit``).  Counters: ``label.units`` every call,
-        ``label.unit_replays`` the replayed ones."""
+        ``ok`` and the superpixel maps.  Counters: ``label.units`` every
+        call, ``label.unit_replays`` the replayed ones."""
         count("label.units")
-        if self._graphed(sps):
-            return self._replay_unit(wire, seeds, draws)
-        cfg = self.cfg
+        g = len(seeds)
+        if draws is None:
+            h, w = self._sp_hw if sps is None else sps.shape[1:]
+            draws = draw_unit(seeds, self._unit_images(wire.shape[0]) // g,
+                              h * w, self.num_segments, self.device)
+        graph = None
         with span("label.decode"):
-            images = self.decode(wire)
+            if self._graphed(sps):
+                graph = self._unit_graph(wire, draws, g)
+            images = (self.decode(wire) if graph is None
+                      else graph.bufs["images"])
         with span("label.superpixels"):
-            sps = self.superpixels(images) if sps is None else sps.to(
-                torch.int32)
+            if graph is not None:
+                graph.replay(0)
+                sps = graph.bufs["sps"]
+            elif sps is None:
+                sps = self.superpixels(images)
+            else:
+                sps = sps.to(torch.int32)
         with device_span("label.features", self.device):
             fmaps = self.features(images)
-        g = len(seeds)
-        hw = sps.shape[1] * sps.shape[2]
         with span("label.cluster"):
-            if draws is None:
-                draws = draw_unit(seeds,
-                                  self._unit_images(sps.shape[0]) // g, hw,
-                                  self.num_segments, self.device)
-            road, cluster, assign, res, ok = cluster_groups(
-                fmaps, sps, draws, n_groups=g,
-                n_anchors=cfg.align.n_anchors,
-                num_segments=self.num_segments,
-                append_pos=cfg.align.append_pos, k=cfg.kmeans.n_clusters,
-                n_iter=cfg.kmeans.n_iter, prior_params=self._prior_params,
-                pos_scale=float(self._downscale), group=self.group)
+            if graph is None:
+                start = self._start(fmaps, sps, draws, g)
+            else:
+                graph.load(feats=fmaps)  # ``features`` may be wrapped
+                graph.replay(2)
+                start = graph.bufs["inputs"], graph.bufs["carries"]
+            road, cluster, assign, res, ok = _cluster_tail(
+                start, sps, n_groups=g, num_segments=self.num_segments,
+                n_iter=self.cfg.kmeans.n_iter, group=self.group)
         with span("label.pack"):
             packed = pack_mask_bits(road)
+        if graph is not None:
+            count("label.unit_replays")
+            sps = sps.clone()
         return {"road": road, "road_packed": packed,
                 "cluster": cluster, "assign": assign, "res": res, "ok": ok,
                 "superpixels": sps}
 
+    def _start(self, fmaps, sps, draws: UnitDraws, n_groups: int):
+        """The unit's third stage (``_cluster_start`` under the config)."""
+        cfg = self.cfg
+        return _cluster_start(
+            fmaps, sps, draws, n_groups=n_groups,
+            n_anchors=cfg.align.n_anchors, num_segments=self.num_segments,
+            append_pos=cfg.align.append_pos, k=cfg.kmeans.n_clusters,
+            prior_params=self._prior_params,
+            pos_scale=float(self._downscale), group=self.group)
+
     def _graphed(self, sps) -> bool:
-        """Whether ``run_unit`` replays the unit's program up to the
-        k-means loop as CUDA graphs: where that program has no host input
-        and no collective, i.e. on a CUDA device, with the device SLIC
-        frontend and on one rank."""
+        """Whether ``run_unit`` replays the unit's stages as CUDA graphs:
+        where they have no host input and no collective, i.e. on a CUDA
+        device, with the device SLIC frontend and on one rank."""
         return (sps is None and self.device.type == "cuda"
                 and self.group is None and fused_superpixels(self.cfg))
 
-    def _replay_unit(self, wire: torch.Tensor, seeds: Sequence[int],
-                     draws: Optional[UnitDraws]) -> dict:
-        """``run_unit`` by replays of the unit's three graphs
-        (``_UnitGraphs``, captured on the shape's first unit); the draws
-        are made eagerly and copied in, the Lloyd loop and what follows
-        run as in ``cluster_groups``.  The same results, bit for bit; none
-        of the returned tensors is a graph's buffer."""
-        cfg = self.cfg
-        g = len(seeds)
-        if draws is None:
-            draws = draw_unit(seeds, wire.shape[0] // g,
-                              self._sp_hw[0] * self._sp_hw[1],
-                              self.num_segments, self.device)
-        graphs = self._unit_graphs(wire, draws, g)
-        with span("label.decode"):
-            graphs.wire.copy_(wire)
-        with span("label.superpixels"):
-            graphs.graphs[0].replay()
-            slic_lloyd.launches += graphs.slic_launches
-        with device_span("label.features", self.device):
-            fmaps = self.features(graphs.images)
-        with span("label.cluster"):
-            if fmaps is not graphs.feats:  # ``features`` is wrapped
-                graphs.feats.copy_(fmaps)
-            graphs.anchor_bits.copy_(draws.anchor_bits)
-            graphs.uniforms.copy_(draws.uniforms)
-            graphs.graphs[2].replay()
-            res = lloyd_loop(graphs.inputs, graphs.carries,
-                             n_iter=cfg.kmeans.n_iter,
-                             check_every=KMEANS_CHECK_EVERY)
-            road, cluster, assign, ok = _paint_groups(
-                graphs.sps, res, n_groups=g, num_segments=self.num_segments)
-        with span("label.pack"):
-            packed = pack_mask_bits(road)
-        count("label.unit_replays")
-        return {"road": road, "road_packed": packed,
-                "cluster": cluster, "assign": assign, "res": res, "ok": ok,
-                "superpixels": graphs.sps.clone()}
+    def _unit_graph(self, wire: torch.Tensor, draws: UnitDraws,
+                    n_groups: int):
+        """The unit's stages captured (``utils/graphs.py``) for this
+        wire's shape, the draws' and the group count, holding this wire
+        and these draws: (0) decode + device SLIC, (1) the backbone, (2)
+        ``_start``.  It becomes the unit in flight (``features``)."""
+        def frontend(b):
+            images = self.decode(b["wire"])
+            return {"images": images, "sps": self.superpixels(images)}
 
-    def _unit_graphs(self, wire: torch.Tensor, draws: UnitDraws,
-                     n_groups: int) -> "_UnitGraphs":
-        """The unit graphs of this wire's shape, the draws' and the group
-        count, captured on their first use; the newest
-        ``_UnitGraphs.CACHE`` are kept."""
+        def start(b):
+            inputs, carries = self._start(b["feats"], b["sps"], UnitDraws(
+                b["anchor_bits"], b["uniforms"]), n_groups)
+            return {"inputs": inputs, "carries": carries}
+
         key = (tuple(wire.shape), wire.dtype, n_groups,
                *((tuple(t.shape), t.dtype) for t in draws))
-        graphs = self._graphs.pop(key, None)
-        if graphs is None:
-            graphs = _UnitGraphs(self, wire, draws, n_groups)
-        self._graphs[key] = graphs
-        while len(self._graphs) > _UnitGraphs.CACHE:
-            self._graphs.popitem(last=False)
-        return graphs
+        self._unit = self._graphs.load(
+            key, (frontend, lambda b: {"feats": self.backbone(b["images"])},
+                  start), {"wire": wire, **draws._asdict()})
+        return self._unit
 
     @torch.no_grad()
     def run_parity(self, prepared: dict, timers: StageTimer) -> dict:
@@ -1077,14 +1082,7 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                 with timers.device_stage("device_program", self.device):
                     handles = self.run_unit(prepared["wire"], seeds,
                                             sps=prepared.get("sps"))
-            res = handles["res"]
-            fetch = {"road_packed": handles["road_packed"],
-                     "ok": handles["ok"], "n_iter": res.n_iter,
-                     "converged": res.converged,
-                     "empty_stop": res.empty_stop}
-            if self._want_cluster_np:
-                fetch["cluster"] = handles["cluster"].to(torch.uint8)
-            handles["_host"] = self._to_host(fetch)
+            self._send(handles, ok=handles["ok"])
         return handles
 
     def finish_batch(self, prepared: dict, handles: dict,
@@ -1114,79 +1112,6 @@ class SpalignLabelGenerator(LabelGeneratorBase):
                               if counts is not None else
                               [self.num_segments] * self._unit_images(n)),
             "retries": retries,
-            "_per_group": {
-                "kmeans_iters": got["n_iter"].astype(int).tolist(),
-                "kmeans_converged": got["converged"].astype(bool).tolist(),
-                "kmeans_empty_stop": got["empty_stop"].astype(
-                    bool).tolist(),
-            },
+            "_per_group": self._kmeans_diagnostics(got),
         }
         return handles["road"], handles["cluster"], diag
-
-
-class _UnitGraphs:
-    """A spalign unit's program from the uploaded wire to the start of
-    the k-means loop as three CUDA graphs, captured back to back into one
-    memory pool and replayed in that order: (0) decode + device SLIC,
-    (1) the backbone (``backbone``), (2) align + prior + the k-means
-    seeding, the loop's inputs and initial carries (``_kmeans_start``).
-    Each graph reads the static buffers of those before it; a unit
-    copies its wire and draws into ``wire``, ``anchor_bits`` and
-    ``uniforms`` first.  An eager run on a side stream first keeps lazy
-    initialisation (cuDNN and cuBLAS handles, kernel builds, the cached
-    constants) out of the graphs.  A graph holds its generator's weights
-    by address, so the generator keeps its own graphs and drops them with
-    its config (``_configure``); calls must come from one thread.
-    ``slic_launches`` is the Lloyd kernel launches a replay of (0) makes,
-    so that ``slic_lloyd.launches`` goes on counting the kernel's runs."""
-
-    CACHE = 4
-
-    def __init__(self, gen: SpalignLabelGenerator, wire: torch.Tensor,
-                 draws: UnitDraws, n_groups: int):
-        self.wire = wire.clone()
-        self.anchor_bits, self.uniforms = (t.clone() for t in draws)
-        stages = (functools.partial(self._superpixels, gen),
-                  functools.partial(self._backbone, gen),
-                  functools.partial(self._start, gen, n_groups))
-        dev = wire.device
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        launches = slic_lloyd.launches
-        self.graphs, pool = [], None
-        with torch.cuda.stream(side):
-            for stage in stages:
-                stage()
-            launches_eager = slic_lloyd.launches
-            # thread_local: the label loop's producer thread goes on
-            # uploading while this thread captures
-            for stage in stages:
-                graph = torch.cuda.CUDAGraph()
-                graph.capture_begin(pool=pool,
-                                    capture_error_mode="thread_local")
-                try:
-                    stage()
-                finally:
-                    graph.capture_end()
-                self.graphs.append(graph)
-                pool = graph.pool()
-        self.slic_launches = launches_eager - launches
-        slic_lloyd.launches = launches_eager  # a capture runs nothing
-        torch.cuda.current_stream(dev).wait_stream(side)
-
-    def _superpixels(self, gen):
-        self.images = gen.decode(self.wire)
-        self.sps = gen.superpixels(self.images)
-
-    def _backbone(self, gen):
-        self.feats = gen.backbone(self.images)
-
-    def _start(self, gen, n_groups):
-        cfg = gen.cfg
-        feats, valid, prior = _align_and_prior(
-            self.feats, self.sps, cfg.align.n_anchors, gen.num_segments,
-            cfg.align.append_pos, gen._prior_params, float(gen._downscale),
-            self.anchor_bits)
-        self.inputs, self.carries = _kmeans_start(
-            feats, valid, prior, self.uniforms, n_groups=n_groups,
-            k=cfg.kmeans.n_clusters)

@@ -378,31 +378,43 @@ def test_label_loop_never_synchronizes_and_times_its_units(cuda,
         assert len(program) == 1 and 0 < s.device_ns < program[0].device_ns
     assert timers.counts()["drn.images"] == 150 * len(backbone)
 
-def test_label_loop_takes_no_capture_after_its_warm_pass(cuda):
+def test_label_loop_takes_no_capture_after_its_warm_pass(cuda, monkeypatch):
     """After a first pass over two units of 5 x 30 at 224^2, a second
     pass runs every k-means chunk as a replay of the graph the first
     captured, every unit's program before the k-means as replays of the
     unit graphs the first captured, and captures none."""
     from spalign_tpu_torch.ops import kmeans as tkm
+    from spalign_tpu_torch.utils import graphs as tgraphs
     from spalign_tpu_torch.utils import timers
 
+    captures = []
+    real = tgraphs.capture
+
+    def counting(stages, *a):
+        captures.append(len(stages))
+        return real(stages, *a)
+
+    monkeypatch.setattr(tgraphs, "capture", counting)
     gen = _cell_generator(cuda)
     ds = _Frames(300, (224, 224))
     gen.process_dataset(ds)
-    graphs = list(tkm._GRAPHS.items())
-    unit_graphs = list(gen._graphs.items())
+    assert captures.count(3) == 1  # the unit's three stages
+    captured = len(captures)
+    graphs = list(tkm._GRAPHS.entries.items())
+    unit_graphs = list(gen._graphs.entries.items())
     assert len(unit_graphs) == 1
     timers.reset()
     gen.process_dataset(ds)
+    assert len(captures) == captured
     c = timers.counts()
     assert c["kmeans.chunks"] == c["kmeans.replays"] >= 2
-    assert list(tkm._GRAPHS.items()) == graphs
+    assert list(tkm._GRAPHS.entries.items()) == graphs
     assert c["label.units"] == c["label.unit_replays"] >= 2
-    assert list(gen._graphs.items()) == unit_graphs
+    assert list(gen._graphs.entries.items()) == unit_graphs
 
 
-# ---- a unit's program before the k-means as CUDA graph replays
-# (pipeline/label_gen.py _UnitGraphs) ----
+# ---- a unit's stages before the k-means as CUDA graph replays
+# (pipeline/label_gen.py run_unit, utils/graphs.py) ----
 
 
 def _wire(dev, n, seed):
@@ -433,6 +445,12 @@ _COMPARED = ("road_packed", "cluster", "assign", "features", "superpixels",
              "n_iter")
 
 
+def _buffers(captured):
+    """Every static buffer of a ``utils.graphs.Captured``."""
+    return [t for v in captured.bufs.values()
+            for t in (v if isinstance(v, tuple) else (v,))]
+
+
 def _assert_units_equal(got, want):
     for name in _COMPARED:
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=0,
@@ -451,7 +469,9 @@ def test_graphed_unit_equals_the_eager_unit(cuda, monkeypatch, model_name,
     """The drn26-spalign-slic cell's unit (5 x 30 at 224^2) and a small
     DRN-D-105 unit (2 x 6), graphed (the capturing call and a replay)
     and eager: equal packed masks, cluster maps, assignments, features,
-    superpixel maps and k-means sweeps, bit for bit."""
+    superpixel maps and k-means sweeps, bit for bit.  The Lloyd kernel's
+    launch count counts every run of it, the capture's warm run and each
+    replay included."""
     import dataclasses
 
     from spalign_tpu_torch.utils import timers
@@ -462,12 +482,16 @@ def test_graphed_unit_equals_the_eager_unit(cuda, monkeypatch, model_name,
     wire = _wire(cuda, groups * batch, 1)
     seeds = [np.uint32(11 + g) for g in range(groups)]
     timers.reset()
+    launches = tsf.slic_lloyd.launches
     first = _run(gen, wire, seeds)
+    assert tsf.slic_lloyd.launches == launches + 2
     second = _run(gen, wire, seeds)
+    assert tsf.slic_lloyd.launches == launches + 3
     c = timers.counts()
     assert c["label.units"] == c["label.unit_replays"] == 2
     assert len(gen._graphs) == 1
     want = _run(_eager(gen, monkeypatch), wire, seeds)
+    assert tsf.slic_lloyd.launches == launches + 4
     assert timers.counts()["label.unit_replays"] == 2
     _assert_units_equal(first, want)
     _assert_units_equal(second, want)
@@ -477,7 +501,10 @@ def test_graphed_units_never_alias_the_graph_buffers(cuda, monkeypatch):
     """Two units of the cell's shape with other wires and seeds back to
     back, then a retry of the first with fresh seeds: the first unit's
     results are unchanged after the others ran, no returned tensor lies
-    in a graph's static buffers, and each unit equals its eager run."""
+    in a static buffer of the unit's or the Lloyd loop's graphs, and each
+    unit equals its eager run."""
+    from spalign_tpu_torch.ops import kmeans as tkm
+
     gen = _cell_generator(cuda)
     wires = [_wire(cuda, 150, 2), _wire(cuda, 150, 3)]
     runs = [(wires[0], [np.uint32(21 + g) for g in range(5)]),
@@ -486,10 +513,10 @@ def test_graphed_units_never_alias_the_graph_buffers(cuda, monkeypatch):
     outs = [_run(gen, w, s) for w, s in runs[:1]]
     kept = {k: outs[0][k].clone() for k in _COMPARED}
     outs += [_run(gen, w, s) for w, s in runs[1:]]
-    (graphs,) = gen._graphs.values()
-    static = [graphs.wire, graphs.anchor_bits, graphs.uniforms,
-              graphs.images, graphs.sps, graphs.feats, *graphs.inputs,
-              *graphs.carries]
+    (unit,) = gen._graphs.entries.values()
+    static = _buffers(unit) + [t for chunk in tkm._GRAPHS.entries.values()
+                               for t in _buffers(chunk)]
+    assert len(_buffers(unit)) == 18
     spans = [(t.untyped_storage().data_ptr(),
               t.untyped_storage().data_ptr() + t.untyped_storage().nbytes())
              for t in static]

@@ -3,9 +3,12 @@ CPU: segment counts that read nothing back (``index_add_`` of ones, equal
 to the ``bincount`` versions they replace), constants built once a device
 (equal to freshly built ones), and the rule that engages the graphs only
 on a CUDA device, with the device SLIC frontend and on one rank; every
-other unit runs eagerly and is counted as a unit, not as a replay.  The
-graphs themselves run on the card only (``tests/test_torch_cuda.py``).
-Tolerance: none."""
+other unit runs eagerly and is counted as a unit, not as a replay.  With
+a stand-in for the capture (a replay runs its stage again and copies
+what it returns into the buffers the capture left, as a graph rewrites
+its static outputs), the cache's policy and the graphed unit's program
+run here too.  The graphs themselves run on the card only
+(``tests/test_torch_cuda.py``).  Tolerance: none."""
 
 import dataclasses
 
@@ -19,6 +22,7 @@ from spalign_tpu_torch.kernels import slic as tslic
 from spalign_tpu_torch.models import drn as tdrn
 from spalign_tpu_torch.ops import segments as tseg
 from spalign_tpu_torch.pipeline import label_gen as tlg
+from spalign_tpu_torch.utils import graphs as tgraphs
 from spalign_tpu_torch.utils import timers
 
 torch.set_num_threads(2)
@@ -184,3 +188,109 @@ def test_graphs_engage_only_without_host_input_or_collective(case, engaged):
     sps = torch.zeros(4, *HW, dtype=torch.int32) if case == "given_maps" \
         else None
     assert gen._graphed(sps) is engaged
+
+
+class _Replay:
+    """A stand-in graph of one stage over a program's buffers."""
+
+    def __init__(self, stage, bufs):
+        self.stage, self.bufs = stage, bufs
+
+    def replay(self):
+        for name, value in self.stage(self.bufs).items():
+            for dst, src in zip(tgraphs._tensors(self.bufs[name]),
+                                tgraphs._tensors(value)):
+                dst.copy_(src)
+
+
+@pytest.fixture
+def stand_in(monkeypatch):
+    """``utils.graphs.capture`` replaced: the stages run once, each
+    becomes a ``_Replay``; returns the list of the captured stages."""
+    captured = []
+
+    def capture(stages, bufs, counted):
+        captured.append(stages)
+        for stage in stages:
+            bufs.update(stage(bufs))
+        return ([_Replay(stage, bufs) for stage in stages],
+                [[0] * len(counted) for _ in stages])
+
+    monkeypatch.setattr(tgraphs, "capture", capture)
+    return captured
+
+
+def _double(bufs):
+    return {"y": bufs["x"] * 2}
+
+
+def test_graph_cache_keeps_the_newest_and_copies_inputs_in(stand_in,
+                                                           monkeypatch):
+    """A hit returns the same entry, captures nothing and copies the new
+    inputs into its static buffers; past the bound the least recently
+    used entry goes; ``reconfigure`` empties the generator's cache."""
+    cache = tgraphs.GraphCache(2, counted=())
+    x = torch.ones(3)
+    first = cache.load("a", (_double,), {"x": x})
+    assert first.bufs["x"] is not x and len(stand_in) == 1
+    hit = cache.load("a", (_double,), {"x": torch.full((3,), 5.0)})
+    assert hit is first and len(stand_in) == 1
+    hit.replay(0)
+    assert torch.equal(hit.bufs["y"], torch.full((3,), 10.0))
+    assert torch.equal(x, torch.ones(3))
+    for key in ("b", "a", "c"):
+        cache.load(key, (_double,), {"x": torch.zeros(3)})
+    assert list(cache.entries) == ["a", "c"]
+    assert len(stand_in) == 3
+
+    gen = tlg.SpalignLabelGenerator(_cfg("device_slic"), device="cpu")
+    monkeypatch.setattr(gen, "_graphed", lambda sps: True)
+    gen.run_unit(torch.from_numpy(_images(4)), [1, 2])
+    assert len(gen._graphs) == 1 and gen._unit is not None
+    gen.set_n_clusters(3)
+    assert len(gen._graphs) == 0 and gen._unit is None
+
+
+def _zero_half(out):
+    out[out.shape[0] // 2:] = 0
+    return out
+
+
+def _rolled(out):
+    return out.roll(1, 0)
+
+
+@pytest.mark.parametrize("wrap", [None, _rolled, _zero_half],
+                         ids=["own", "replaced", "changed_in_place"])
+def test_stand_in_graphed_unit_equals_the_eager_unit(stand_in, monkeypatch,
+                                                     wrap):
+    """Two units of 2 x 2 through the graphed program with the stand-in
+    capture (the capturing call, then a replay with another wire and
+    other seeds) equal their eager runs bit for bit, with ``features``
+    as it is, wrapped to return other features, or wrapped to change its
+    result in place (either must reach the masks); one capture of three
+    stages, no result in a static buffer."""
+    gen = tlg.SpalignLabelGenerator(_cfg("device_slic"), device="cpu")
+    if wrap is not None:
+        real = gen.features
+        monkeypatch.setattr(gen, "features", lambda im: wrap(real(im)))
+    units = [(torch.from_numpy(_images(4, seed)), [11 + seed, 21 + seed])
+             for seed in (0, 1)]
+    want = [gen.run_unit(w, s) for w, s in units]
+    monkeypatch.setattr(gen, "_graphed", lambda sps: True)
+    timers.reset()
+    got = [gen.run_unit(w, s) for w, s in units]
+    c = timers.counts()
+    assert c["label.units"] == c["label.unit_replays"] == 2
+    assert [len(stages) for stages in stand_in] == [3]
+    static = {t.data_ptr() for v in gen._unit.bufs.values()
+              for t in tgraphs._tensors(v)}
+    for g, w in zip(got, want):
+        for name in ("road", "road_packed", "cluster", "assign", "ok",
+                     "superpixels"):
+            torch.testing.assert_close(g[name], w[name], rtol=0, atol=0,
+                                       msg=name)
+            assert g[name].data_ptr() not in static, name
+        for a, b in zip(g["res"], w["res"]):
+            torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+            assert a.data_ptr() not in static
