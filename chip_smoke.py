@@ -51,6 +51,14 @@ Run from the root of the repository on a machine with one CUDA GPU and
                gradients must be bit-equal; float32 times by CUDA events
                beside the bound, the plain versions and PyTorch's own
                max_pool2d / max_unpool2d (yardsticks the port never calls)
+  drn_epilogue the folded DRN's epilogue kernel against its plain version
+               at every epilogue shape of DRN-D-105 and DRN-C-26 at the
+               label unit (150 x 224^2, bf16, channels_last): bit-equal;
+               times of CUDA graph replays (as the label path runs it)
+               over buffers that together outgrow the L2 cache, beside
+               the byte bound, the plain version and PyTorch's eval
+               batch_norm + add + relu (the yardstick the port never
+               calls), each shape weighted by its launches a forward
   train_path   stage 1 feeds stage 2: 60 synthetic frames at 512x1024
                labelled by SpalignLabelGenerator into .npy masks, read back
                by EstimatedCityscapesDataset through a PrefetchLoader;
@@ -215,6 +223,7 @@ N_SCENES = 30
 N_FULL_SCENES = 15  # at 1024x2048, with their mirror images: 30 frames
 FULL_HW = (1024, 2048)
 UNIT = 150  # 5 groups x 30 images
+L2_BYTES = 50 * 2 ** 20  # the H100's L2 cache
 SWEEP_GROUPS = 5  # clustering batches a unit in sweep_phase
 # the bench modes that launch the Lloyd kernel
 BENCH_LLOYD_MODES = ("slic", "slic_scored", "slic_d2", "slic_cc")
@@ -370,6 +379,38 @@ def cuda_ms(fn, reps, warmup=2):
     return float(np.median(times)), times
 
 
+def graph_ms(fns, reps=20):
+    """Median milliseconds a call over 5 replays of one CUDA graph of
+    ``reps`` calls of the callables ``fns`` in turn (CUDA events): the
+    device time of the calls as the label path's graphs run them, without
+    the host's launch gaps that a lone launch's events include.  Callables
+    on distinct buffers, more bytes together than the L2 cache holds,
+    make each call read device memory, as a forward's does."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for fn in fns:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(reps):
+            fns[i % len(fns)]()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return float(np.median(times))
+
+
 def lloyd_bound_ms(lab, c0, shape, n_iter):
     """Least time of the Lloyd loop on an H100: the larger of its bytes
     (lab and c0 read once, labels written once) over HBM bandwidth and
@@ -431,7 +472,10 @@ def fig8_lloyd_units():
     """{images a launch: launches} of sweep_phase's fig 8 run: for each
     clustering batch of the grid, one unit of UNIT images in batches of
     that size (the tail batch overlapping its predecessor), SWEEP_GROUPS
-    batches a Lloyd launch."""
+    batches a Lloyd launch; and one more for each unit size a batch size
+    meets, the warm run before that size's unit graph is captured
+    (``utils/graphs.py``; each grid value's ``reconfigure`` starts a new
+    graph cache)."""
     from collections import Counter
 
     from spalign_tpu_torch.cli.sweep import FIG_GRIDS
@@ -440,8 +484,10 @@ def fig8_lloyd_units():
     units = Counter()
     for bs in FIG_GRIDS["fig8"][1]:
         s = batch_slices(0, UNIT, bs)
-        for x in range(0, len(s), SWEEP_GROUPS):
-            units[sum(j - i for i, j in s[x:x + SWEEP_GROUPS])] += 1
+        sizes = [sum(j - i for i, j in s[x:x + SWEEP_GROUPS])
+                 for x in range(0, len(s), SWEEP_GROUPS)]
+        units.update(sizes)
+        units.update(set(sizes))
     return dict(units)
 
 
@@ -1179,8 +1225,10 @@ def large_k_case(images, n_seg, comp, n_sweeps):
 
 
 def reset_counts():
-    from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
+    from spalign_tpu_torch.kernels import (drn_epilogue, pooling,
+                                           slic_assign, slic_fused)
 
+    drn_epilogue.drn_epilogue.launches = 0
     slic_fused.slic_lloyd.launches = 0
     slic_assign.slic_assign.launches = 0
     slic_assign.slic_assign.sums_launches = 0
@@ -2383,7 +2431,8 @@ def sweep_phase(frames, labels):
           f"fig 7 launched the Lloyd kernel: {fig7['launches']}")
     check(fig8["launches"]["slic_lloyd"]
           == sum(fig8_lloyd_units().values()),
-          f"fig 8 launched the Lloyd kernel once a unit: {fig8['launches']}")
+          f"fig 8 launched the Lloyd kernel once a unit and once a "
+          f"capture: {fig8['launches']}")
     check(all(np.isfinite(r["road_iou"]) for g in grids.values()
               for r in g["rows"]), "finite road IoU")
     check(all(dynamic_equal.values()), f"dynamic k equals static k on the "
@@ -3021,6 +3070,98 @@ def bench_phase():
     return out
 
 
+def drn_epilogue_phase():
+    """The folded DRN's epilogue (``kernels/drn_epilogue.py``) at every
+    epilogue shape of the folded DRN-D-105 and DRN-C-26 at the label
+    unit: bit-equal to the plain version; kernel and library times as
+    CUDA graph replays run them (``graph_ms``, over as many copies of a
+    shape's tensors as outgrow the L2 cache twice), the plain version's
+    (``cuda_ms``) and the byte bound, summed over one forward with each
+    shape weighted by its launches.  Returns the sums by network."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from spalign_tpu_torch.kernels import drn_epilogue as de
+    from spalign_tpu_torch.models import drn as tdrn
+
+    dev, cl = torch.device("cuda"), torch.channels_last
+    gen = torch.Generator(device=dev).manual_seed(23)
+
+    def rand(shape):
+        return (torch.randn(shape, generator=gen, device=dev) * 3).to(
+            torch.bfloat16).contiguous(memory_format=cl)
+
+    summary = {}
+    for name in ("drn_d_105", "drn_c_26"):
+        folded = tdrn.fold_drn(tdrn.DRN_FACTORIES[name](device="cpu"),
+                               torch.bfloat16).to(dev).to(memory_format=cl)
+        calls = []
+        real = tdrn.drn_epilogue
+
+        def recording(y, bias, residual=None):
+            calls.append((*y.shape[1:], residual is not None))
+            return real(y, bias, residual)
+
+        tdrn.drn_epilogue = recording
+        try:
+            folded.features(torch.zeros((1, 224, 224, 3), device=dev))
+        finally:
+            tdrn.drn_epilogue = real
+        del folded
+        sums = {"launches": len(calls), "max_abs_err": 0.0, "kernel_ms": 0.0,
+                "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+        rows = []
+        for (c, h, w, res), n in collections.Counter(calls).items():
+            y = rand((UNIT, c, h, w))
+            r = rand((UNIT, c, h, w)) if res else None
+            bias = torch.randn(c, generator=gen, device=dev)
+            err = exact_err(de.drn_epilogue(y.clone(), bias, r),
+                            de.drn_epilogue_reference(y, bias, r))
+            stats = [torch.randn(c, generator=gen, device=dev).to(
+                torch.bfloat16) for _ in range(4)]
+            mean, var, gamma, beta = stats[0], stats[1].abs() + 1, *stats[2:]
+
+            def library(y, r):  # the DRN's own ops: BN, the add, ReLU
+                z = F.batch_norm(y, mean, var, gamma, beta, False, 0.0, 1e-5)
+                return torch.relu(z if r is None else z + r)
+
+            n_bytes = y.numel() * y.element_size() * (3 if res else 2) + c * 4
+            footprint = y.numel() * y.element_size() * (2 if res else 1)
+            copies = -(-2 * L2_BYTES // footprint)
+            ys = [y] + [rand(y.shape) for _ in range(copies - 1)]
+            rs = [r] + [rand(y.shape) if res else None
+                        for _ in range(copies - 1)]
+            kernel_ms = graph_ms([
+                lambda y=y, r=r: de.drn_epilogue(y, bias, r)
+                for y, r in zip(ys, rs)])
+            plain_ms, _ = cuda_ms(
+                lambda: de.drn_epilogue_reference(y, bias, r), reps=3,
+                warmup=1)
+            library_ms = graph_ms([
+                lambda y=y, r=r: library(y, r) for y, r in zip(ys, rs)],
+                reps=5 * copies)
+            least_ms, _ = bound_ms(n_bytes, y.numel() * (3 if res else 2))
+            rows.append({"c": c, "h": h, "w": w, "residual": res,
+                         "launches": n, "copies": copies, "max_abs_err": err,
+                         "kernel_ms": kernel_ms, "bound_ms": least_ms,
+                         "plain_ms": plain_ms, "library_ms": library_ms,
+                         "GB_per_s": n_bytes / kernel_ms / 1e6})
+            sums["max_abs_err"] = max(sums["max_abs_err"], err)
+            for key in ("kernel_ms", "bound_ms", "plain_ms", "library_ms"):
+                sums[key] += n * rows[-1][key]
+            del y, r, ys, rs
+            torch.cuda.empty_cache()
+        sums["share_of_bound"] = sums["bound_ms"] / sums["kernel_ms"]
+        summary[name] = sums
+        emit({"phase": "drn_epilogue", "network": name, "unit": UNIT,
+              "shapes": rows, "per_forward": sums})
+        check(sums["max_abs_err"] == 0.0,
+              f"{name}: drn_epilogue bit-equal to its plain version")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -3029,7 +3170,8 @@ def main() -> int:
         return 2
     from spalign_tpu_torch import native
     from spalign_tpu_torch.config import LabelGenConfig, SuperpixelConfig
-    from spalign_tpu_torch.kernels import pooling, slic_assign, slic_fused
+    from spalign_tpu_torch.kernels import (drn_epilogue, pooling,
+                                           slic_assign, slic_fused)
     from spalign_tpu_torch.models.drn import (DRN_FACTORIES,
                                               preprocess_imagenet)
     from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
@@ -3047,7 +3189,7 @@ def main() -> int:
           "python": sys.version.split()[0]})
 
     libs = [slic_fused.LIBRARY, slic_assign.LIBRARY, pooling.LIBRARY,
-            native.LIBRARY]
+            drn_epilogue.LIBRARY, native.LIBRARY]
     t0 = time.time()
     build_libraries(libs)
     emit({"phase": "build", "seconds": round(time.time() - t0, 3),
@@ -3107,7 +3249,8 @@ def main() -> int:
     t0 = time.time()
     records = gen.process_dataset(timed, save=False)
     elapsed = time.time() - t0
-    launches = read_counts()["slic_lloyd"]
+    main_counts = read_counts()
+    launches = main_counts["slic_lloyd"]
     check(len(records) == 3 * UNIT, "one record per image")
     ious = [r["road_iou"] for r in records]
     predicted_road = [r["TP"] + r["FP"] for r in records]
@@ -3126,6 +3269,7 @@ def main() -> int:
             "kmeans_iters_per_group": list(groups.values()),
             "retries": int(sum(r["retries"] for r in records[::UNIT])),
             "slic_lloyd_launches": launches,
+            "drn_epilogue_launches": main_counts["drn_epilogue"],
             "unit_stage_seconds": stages,
             "min_predicted_road_px": int(min(predicted_road)),
             "features_shape": list(feats.shape),
@@ -3133,6 +3277,8 @@ def main() -> int:
             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
     emit(main)
     check(launches > 0, "the main path launched the Lloyd kernel")
+    check(main_counts["drn_epilogue"] > 0,
+          "the main path launched the folded DRN's epilogue")
     check(min(predicted_road) > 0, "no all-empty road mask")
     check(main["features_finite"], "finite features")
     check(all(np.isfinite(ious)), "finite road IoU")
@@ -3165,6 +3311,7 @@ def main() -> int:
 
     # --- stage 2: the pooling kernels, then SegNetBasic training
     pool_summary = pooling_phase()
+    drn_summary = drn_epilogue_phase()
     train_launches, train_curves = train_phase(cfg, frames, frames512,
                                                labels, pool_summary)
     torch.cuda.empty_cache()
@@ -3205,31 +3352,28 @@ def main() -> int:
     # to 0 just before it and read just after (the dry run's rank: its
     # process's counts, which start at 0)
     dry = ranks["dryrun_multichip_1"]
-    lloyd_paths = {"main_path": launches,
-                   "host_superpixels_path.slic_connectivity":
-                   host_sp["slic_connectivity"]["launches"]["slic_lloyd"],
-                   "real_files.zip_slic_connectivity":
-                   real["label_cli"]["zip_slic_connectivity"]["launches"][
-                       "slic_lloyd"],
-                   "sweep.fig7": sweep["grids"]["fig7_device_slic"][
-                       "launches"]["slic_lloyd"],
-                   "diagnostics.label_cli":
-                   diag["label_cli"]["launches"]["slic_lloyd"],
-                   "several_ranks.spalign":
-                   ranks["spalign"]["launches"]["slic_lloyd"],
-                   "several_ranks.dryrun_ranks": dry["rank_launches"][
-                       "slic_lloyd"],
-                   "several_ranks.dryrun_one_rank":
-                   dry["one_rank_launches"]["slic_lloyd"],
-                   "last_gaps.quickstart": gaps["examples"]["quickstart"][
-                       "launches"]["slic_lloyd"],
-                   "last_gaps.explore": gaps["examples"]["explore"][
-                       "launches"]["slic_lloyd"],
-                   "sweep.fig8": sweep["grids"]["fig8_device_slic"][
-                       "launches"]["slic_lloyd"]}
     bench_launches = bench_rows["launches"]
-    lloyd_paths.update({f"bench.{m}": c["slic_lloyd"]
-                        for m, c in bench_launches.items()})
+    # the counts of the paths that run the Lloyd kernel
+    lloyd_counts = {"main_path": main_counts,
+                    "host_superpixels_path.slic_connectivity":
+                    host_sp["slic_connectivity"]["launches"],
+                    "real_files.zip_slic_connectivity":
+                    real["label_cli"]["zip_slic_connectivity"]["launches"],
+                    "sweep.fig7": sweep["grids"]["fig7_device_slic"][
+                        "launches"],
+                    "diagnostics.label_cli": diag["label_cli"]["launches"],
+                    "several_ranks.spalign": ranks["spalign"]["launches"],
+                    "several_ranks.dryrun_ranks": dry["rank_launches"],
+                    "several_ranks.dryrun_one_rank":
+                    dry["one_rank_launches"],
+                    "last_gaps.quickstart": gaps["examples"]["quickstart"][
+                        "launches"],
+                    "last_gaps.explore": gaps["examples"]["explore"][
+                        "launches"],
+                    "sweep.fig8": sweep["grids"]["fig8_device_slic"][
+                        "launches"]}
+    lloyd_counts.update({f"bench.{m}": c for m, c in bench_launches.items()})
+    lloyd_paths = {k: c["slic_lloyd"] for k, c in lloyd_counts.items()}
     # slic_lloyd launches at several shapes: fig 8 at its units, bench's
     # label modes at theirs, the paths of earlier slices at the main
     # path's.  Its ms, plain_ms and bound_ms are means over the paths'
@@ -3318,6 +3462,30 @@ def main() -> int:
                            if k.endswith(("ms", "by", "centres", "images",
                                           "hw"))}
                     for name, case in assign["large_k"].items()}}]
+    # the folded DRN's epilogue: one launch a convolution output of every
+    # label forward on the card outside the parity mode, on the paths that
+    # run Lloyd and on the overlaps paths.  Its ms, plain_ms, bound_ms and
+    # library_ms are means a launch over one DRN-C-26 forward at the label
+    # unit (the network of these paths), each shape weighted by its
+    # launches; per_forward has the sums of both networks
+    drn_paths = {k: c["drn_epilogue"]
+                 for k, c in {**lloyd_counts, **assign_paths}.items()}
+    c26 = drn_summary["drn_c_26"]
+    check(drn_paths["main_path"] % c26["launches"] == 0,
+          "the main path's epilogue launches are whole DRN-C-26 forwards")
+
+    def drn_mean(key):
+        return c26[key] / c26["launches"]
+
+    kernels.append({
+        "name": "drn_epilogue", "route": "cuda",
+        "source": "spalign_tpu_torch/csrc/drn_epilogue.cu", "replaces": None,
+        "launches": sum(drn_paths.values()), "launches_by_path": drn_paths,
+        "max_abs_err": max(v["max_abs_err"] for v in drn_summary.values()),
+        "ms": drn_mean("kernel_ms"), "kernel_ms": drn_mean("kernel_ms"),
+        "plain_ms": drn_mean("plain_ms"), "bound_ms": drn_mean("bound_ms"),
+        "bound_by": "bytes", "library_ms": drn_mean("library_ms"),
+        "per_forward": drn_summary})
     # pooling: sums over the train step's four float32 levels (one
     # launch of the kernel at each), launches over the timed steps of
     # train_path and the train CLI's run (its steps and its evaluation)

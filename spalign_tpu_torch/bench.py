@@ -393,7 +393,7 @@ def print_breakdown(mode, gen, records, imgs_per_sec):
     dev_t = start.elapsed_time(end) / 1e3 / PROBE_CALLS
     launches = {k: (v - before[k]) / PROBE_CALLS
                 for k, v in launch_counts().items() if v != before[k]}
-    flops, n_convs = conv_flops(gen.model, lambda: gen.features(
+    flops, n_convs = conv_flops(gen.net, lambda: gen.features(
         gen.decode(wire)))
     peak = PEAK_FLOPS["bfloat16" if cfg.model_dtype == "bfloat16"
                       else "float32"]

@@ -10,6 +10,11 @@ eight stage outputs NHWC.  Inside, the convolutions run NCHW (or
 
 The label path reads stage 8's output: for a 224x224 input, a 512-channel
 28x28 map (output stride 8, map index 7).
+
+``fold_drn`` makes the inference form the label path runs on the card,
+``FoldedDRN``: each eval BatchNorm folded into the convolution before it,
+and each convolution output through one in-place epilogue (bias, residual,
+ReLU: ``kernels/drn_epilogue.py``).  ``DRN`` itself keeps its BN.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
+from spalign_tpu_torch.kernels.drn_epilogue import drn_epilogue
 from spalign_tpu_torch.utils.device import resolve_device
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
@@ -208,6 +214,122 @@ class DRN(nn.Module):
         _, maps = self._stages(self._to_internal(x_nhwc))
         cat = torch.cat([maps[i] for i in use_maps], dim=1)
         return cat.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+
+
+def _fold(conv: nn.Conv2d, bn: nn.BatchNorm2d, dtype: torch.dtype):
+    """``conv`` then eval ``bn`` as one convolution: (a bias-free
+    ``nn.Conv2d`` whose weight is W * s rounded once to ``dtype``, the
+    float32 shift beta - mean * s), s = gamma / sqrt(var + eps) per output
+    channel, all in float32 on the CPU."""
+    with torch.no_grad():
+        s = (bn.weight.float()
+             / torch.sqrt(bn.running_var.float() + bn.eps)).cpu()
+        weight = conv.weight.float().cpu() * s.reshape(-1, 1, 1, 1)
+        shift = bn.bias.float().cpu() - bn.running_mean.float().cpu() * s
+    folded = nn.Conv2d(conv.in_channels, conv.out_channels, conv.kernel_size,
+                       stride=conv.stride, padding=conv.padding,
+                       dilation=conv.dilation, groups=conv.groups,
+                       bias=False, device="meta")
+    folded.weight = nn.Parameter(weight.to(dtype), requires_grad=False)
+    return folded, shift
+
+
+class _FoldedConvReLU(nn.Module):
+    """Convolution, eval BN, ReLU (a C stem, a D stem, a stage of
+    ``DRN._convs``): the folded convolution and the ReLU epilogue."""
+
+    def __init__(self, conv, bn, dtype):
+        super().__init__()
+        self.conv, shift = _fold(conv, bn, dtype)
+        self.register_buffer("shift", shift)
+
+    def forward(self, x):
+        return drn_epilogue(self.conv(x), self.shift)
+
+
+class _FoldedBlock(nn.Module):
+    """A ``BasicBlock`` or ``Bottleneck``: every convolution but the last
+    through the ReLU epilogue; the last one's epilogue adds the skip, the
+    input or the downsample convolution's output, when the block adds one.
+    The downsample convolution has no epilogue of its own: its BN shift
+    joins the last one's, relu(W3 h + Wd x + (b3 + bd))."""
+
+    def __init__(self, block, dtype):
+        super().__init__()
+        pairs = [(block.conv1, block.bn1), (block.conv2, block.bn2)]
+        if isinstance(block, Bottleneck):
+            pairs.append((block.conv3, block.bn3))
+        self.inner = nn.ModuleList(_FoldedConvReLU(c, b, dtype)
+                                   for c, b in pairs[:-1])
+        self.conv, shift = _fold(*pairs[-1], dtype)
+        # bottlenecks always add the skip; a basic block when ``residual``
+        self.residual = getattr(block, "residual", True)
+        self.down = None
+        if self.residual and block.downsample is not None:
+            self.down, down_shift = _fold(*block.downsample, dtype)
+            shift = shift + down_shift
+        self.register_buffer("shift", shift)
+
+    def forward(self, x):
+        y = x
+        for f in self.inner:
+            y = f(y)
+        skip = None
+        if self.residual:
+            skip = x if self.down is None else self.down(x)
+        return drn_epilogue(self.conv(y), self.shift, skip)
+
+
+def _fold_stage(layer: nn.Sequential, dtype) -> nn.Sequential:
+    """One of ``DRN``'s stages folded: blocks (``DRN._res``) or
+    convolution, BN, ReLU triples (``DRN._convs``)."""
+    if isinstance(layer[0], nn.Conv2d):
+        return nn.Sequential(*(_FoldedConvReLU(layer[i], layer[i + 1], dtype)
+                               for i in range(0, len(layer), 3)))
+    return nn.Sequential(*(_FoldedBlock(b, dtype) for b in layer))
+
+
+class FoldedDRN(nn.Module):
+    """A ``DRN``'s ``features`` for inference, eval BN folded into the
+    convolutions (``fold_drn``).  Its weights are in the compute dtype,
+    its shifts float32: move it with ``.to(device)`` and
+    ``.to(memory_format=...)``, never ``.to(dtype)`` (fold again)."""
+
+    def __init__(self, model: DRN, dtype: torch.dtype):
+        super().__init__()
+        if model.arch == "C":
+            self.stem = _FoldedConvReLU(model.conv1, model.bn1, dtype)
+        else:
+            conv, bn, _ = model.layer0
+            self.stem = _FoldedConvReLU(conv, bn, dtype)
+        self.stages = nn.ModuleList(
+            _fold_stage(layer, dtype)
+            for layer in (model.layer1, model.layer2, model.layer3,
+                          model.layer4, model.layer5, model.layer6,
+                          model.layer7, model.layer8) if layer is not None)
+
+    @torch.no_grad()
+    def features(self, x_nhwc, use_maps=(7,)) -> torch.Tensor:
+        """``DRN.features``: (B, H, W, 3) preprocessed -> (B, hf, wf, C)
+        float32, the concatenated stage outputs ``use_maps``."""
+        w = self.stem.conv.weight
+        x = x_nhwc.permute(0, 3, 1, 2).to(w.dtype)
+        if w.is_cuda:
+            x = x.contiguous(memory_format=torch.channels_last)
+        x = self.stem(x)
+        maps = []
+        for stage in self.stages:
+            x = stage(x)
+            maps.append(x)
+        cat = torch.cat([maps[i] for i in use_maps], dim=1)
+        return cat.permute(0, 2, 3, 1).to(torch.float32).contiguous()
+
+
+def fold_drn(model: DRN, dtype: torch.dtype = torch.float32) -> FoldedDRN:
+    """The inference form of ``model`` (its eval BN statistics folded in
+    float32, the weights rounded once to ``dtype``), on the CPU; ``model``
+    is left as it is."""
+    return FoldedDRN(model, dtype).eval()
 
 
 def init_drn_(model: DRN, generator: torch.Generator) -> DRN:

@@ -31,6 +31,11 @@ first use (``utils/graphs.py``, the port's one capture module), and the
 Lloyd loop of the tail replays its own graph (``ops/kmeans.py``): the
 host enqueues a unit with few launches and waits only for the k-means
 checks and the landing.  Everywhere else the stages are called.
+Outside the parity mode the backbone is the DRN's inference form
+(``models/drn.py`` ``FoldedDRN``: eval BN folded into the convolutions,
+one epilogue a convolution, the hand-written kernel on the card), built
+from the float32 weights of the DRN (``self.model``, which keeps its BN
+and then stays on the CPU).
 
 Random draws (anchor bits and the k-means seeding uniforms) come from a
 ``torch.Generator`` seeded per group from the host seed stream, or are
@@ -92,9 +97,11 @@ from spalign_tpu_torch.config import LabelGenConfig, flatten
 from spalign_tpu_torch.data.labels import create_label_mask, remap_label_ids
 from spalign_tpu_torch.data.png import write_png
 from spalign_tpu_torch.eval.results import ResultWriter
+from spalign_tpu_torch.kernels.drn_epilogue import drn_epilogue
 from spalign_tpu_torch.kernels.slic import slic, slic_grid_size
 from spalign_tpu_torch.kernels.slic_fused import slic_lloyd
-from spalign_tpu_torch.models.drn import DRN_FACTORIES, preprocess_imagenet
+from spalign_tpu_torch.models.drn import (DRN_FACTORIES, fold_drn,
+                                          preprocess_imagenet)
 from spalign_tpu_torch.ops.align import superpixel_align
 from spalign_tpu_torch.ops.kmeans import (kmeans_seed_assignment, lloyd_loop,
                                           lloyd_start, paint_clusters,
@@ -398,7 +405,7 @@ class LabelGeneratorBase:
         self.cfg = cfg
         full_float32(self.device)
         self._model_name, self._state_dict = model_name, state_dict
-        self.model = self._build_model(self._model_dtype(cfg))
+        self.model, self.net = self._build_model(cfg)
         seed = cfg.kmeans.seed if seed is None else seed
         self._seed_rng = np.random.RandomState(seed)
         # the parity mode's replicas of the reference's process-global
@@ -422,17 +429,30 @@ class LabelGeneratorBase:
         return {"float32": torch.float32,
                 "bfloat16": torch.bfloat16}[cfg.model_dtype]
 
-    def _build_model(self, dtype: torch.dtype):
-        """The DRN with the generator's weights (the given state_dict, or
-        the factory's seeded random weights) in ``dtype`` on the device,
-        channels_last on the card."""
+    @staticmethod
+    def _folds(cfg: LabelGenConfig) -> bool:
+        """Whether the backbone runs the folded DRN (``FoldedDRN``):
+        outside the parity mode, whose contract is the reference's float32
+        arithmetic, BN unfolded."""
+        return cfg.kmeans.init != "reference"
+
+    def _build_model(self, cfg: LabelGenConfig):
+        """(the DRN with the generator's weights (the given state_dict, or
+        the factory's seeded random weights) in the config's compute
+        dtype, the network ``backbone`` runs, on the device and
+        channels_last on the card).  Where ``_folds`` holds, that network
+        is the DRN's folded form, folded from the float32 weights before
+        the cast, and the DRN stays on the CPU; else it is the DRN."""
+        dtype = self._model_dtype(cfg)
         model = DRN_FACTORIES[self._model_name](device="cpu")
         if self._state_dict is not None:
             model.load_state_dict(self._state_dict, strict=True)
-        model = model.to(device=self.device, dtype=dtype)
+        net = fold_drn(model, dtype) if self._folds(cfg) else model
+        model = model.to(dtype=dtype).eval()
+        net = net.to(self.device)
         if self.device.type == "cuda":
-            model = model.to(memory_format=torch.channels_last)
-        return model.eval()
+            net = net.to(memory_format=torch.channels_last)
+        return model, net
 
     def _configure(self):
         """What the generator derives from self.cfg (the subclasses add
@@ -441,7 +461,7 @@ class LabelGeneratorBase:
         p = self.cfg.prior
         self._prior_params = (p.y_rel_pos, p.x_rel_pos, p.y_rel_sigma,
                               p.x_rel_sigma)
-        self._graphs = GraphCache(4, counted=(slic_lloyd,))  # 4 shapes
+        self._graphs = GraphCache(4, counted=(slic_lloyd, drn_epilogue))
         self._unit = None  # the graphed unit in flight
 
     def _check_k(self, cfg: LabelGenConfig):
@@ -453,14 +473,15 @@ class LabelGeneratorBase:
     # --- sweep support: one generator, a config a row ---
 
     def reconfigure(self, cfg: LabelGenConfig):
-        """Adopt a new config: validated, the DRN rebuilt (same weights)
-        when the compute dtype changes, everything derived from the
-        config recomputed.  The seed streams go on where they are."""
+        """Adopt a new config: validated, the DRN and the network
+        ``backbone`` runs rebuilt (same weights) when the compute dtype or
+        ``_folds`` changes, everything derived from the config recomputed.  The seed
+        streams go on where they are."""
         self._check_k(cfg)
         self._validate(cfg)
-        dtype = self._model_dtype(cfg)
-        if dtype != self._model_dtype(self.cfg):
-            self.model = self._build_model(dtype)
+        if ((self._model_dtype(cfg), self._folds(cfg))
+                != (self._model_dtype(self.cfg), self._folds(self.cfg))):
+            self.model, self.net = self._build_model(cfg)
         self.cfg = cfg
         self._configure()
 
@@ -503,10 +524,13 @@ class LabelGeneratorBase:
     @torch.no_grad()
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """(B, H, W, 3) RGB 0..255 on the device -> (B, hf, wf, C)
-        float32 concatenated DRN maps; counts the images (``drn.images``).
-        The decoded images of the graphed unit in flight (``run_unit``)
-        replay its backbone graph and give that graph's output buffer."""
-        count("drn.images", int(images.shape[0]))
+        float32 concatenated DRN maps; counts the images (``drn.images``)
+        and those the folded DRN serves (``drn.folded_images``).  The
+        decoded images of the graphed unit in flight (``run_unit``) replay
+        its backbone graph and give that graph's output buffer."""
+        n = int(images.shape[0])
+        count("drn.images", n)
+        count("drn.folded_images", n if self._folds(self.cfg) else 0)
         unit = self._unit
         if unit is not None and images is unit.bufs["images"]:
             unit.replay(1)
@@ -515,8 +539,8 @@ class LabelGeneratorBase:
 
     def backbone(self, images: torch.Tensor) -> torch.Tensor:
         """The DRN of ``features``, device work only."""
-        x = preprocess_imagenet(images)
-        return self.model.features(x, self.cfg.use_feature_maps)
+        return self.net.features(preprocess_imagenet(images),
+                                 self.cfg.use_feature_maps)
 
     def decode(self, wire: torch.Tensor) -> torch.Tensor:
         """Uploaded batch (wire format) -> (B, H, W, 3) uint8 RGB."""

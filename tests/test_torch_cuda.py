@@ -7,7 +7,10 @@ SLIC labels are equal bit for bit (the kernels and their plain versions
 do the same integer sums and the same float32 operations in the same
 order, and so do the two SLIC engines); pooled values, codes and
 gradients are equal bit for bit (each is one input element selected by
-a compare, or zero)."""
+a compare, or zero); so are the DRN epilogue's outputs (the same float32
+sums in the same order, one rounding).  The folded DRN's bf16 features
+may be at most 1.1 x as far from the float32 DRN as the bf16 DRN with
+its BN (the fold rounds the weights once, from float32 statistics)."""
 
 import numpy as np
 import pytest
@@ -740,6 +743,176 @@ def test_segnet_basic_train_step_launch_counts(cuda, tmp_path):
     assert torch.isfinite(loss)
     assert (tpk.pool2x2.launches, tpk.scatter2x2.launches,
             tpk.gather2x2.launches) == (4, 8, 4)
+
+
+# ---- the folded DRN's epilogue (kernels/drn_epilogue.py,
+# csrc/drn_epilogue.cu) and the folded backbone ----
+
+
+def _folded(dev, model_name, sd=None, dtype=torch.bfloat16):
+    """``model_name``'s DRN (float32, on the CPU; ``sd`` its weights, else
+    the factory's) and its folded form in ``dtype`` on ``dev``,
+    channels_last, as the label generator builds it."""
+    from spalign_tpu_torch.models import drn as tdrn
+
+    model = tdrn.DRN_FACTORIES[model_name](device="cpu")
+    if sd is not None:
+        model.load_state_dict(sd, strict=True)
+    folded = tdrn.fold_drn(model, dtype).to(dev).to(
+        memory_format=torch.channels_last)
+    return model, folded
+
+
+def _epilogue_shapes(dev, monkeypatch, model_name):
+    """(C, H, W, whether a residual is added) of each epilogue of
+    ``model_name``'s folded forward at 224^2, each once, in order met."""
+    from spalign_tpu_torch.models import drn as tdrn
+
+    _, folded = _folded(dev, model_name)
+    seen = []
+    real = tdrn.drn_epilogue
+
+    def recording(y, bias, residual=None):
+        key = (*y.shape[1:], residual is not None)
+        if key not in seen:
+            seen.append(key)
+        return real(y, bias, residual)
+
+    monkeypatch.setattr(tdrn, "drn_epilogue", recording)
+    folded.features(torch.zeros((1, 224, 224, 3), device=dev))
+    monkeypatch.setattr(tdrn, "drn_epilogue", real)
+    return seen
+
+
+def _channels_last(dev, shape, dtype, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(shape, generator=g, device=dev) * 3).to(dtype) \
+        .contiguous(memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("model_name", ["drn_c_26", "drn_d_105"])
+def test_drn_epilogue_equals_plain_version_at_every_shape(cuda, monkeypatch,
+                                                          model_name):
+    """Every epilogue shape of the folded DRN-C-26 / DRN-D-105 at 224^2
+    (the C = 16 stem first) at a ragged batch of 7: the kernel equals
+    its plain version bit for bit, bfloat16 and float32, each launch
+    counted."""
+    from spalign_tpu_torch.kernels.drn_epilogue import (
+        drn_epilogue, drn_epilogue_reference)
+
+    shapes = _epilogue_shapes(cuda, monkeypatch, model_name)
+    assert shapes[0] == (16, 224, 224, False)
+    assert any(res for *_, res in shapes)
+    for i, (c, h, w, res) in enumerate(shapes):
+        for dtype in (torch.bfloat16, torch.float32):
+            y = _channels_last(cuda, (7, c, h, w), dtype, 3 * i)
+            r = (_channels_last(cuda, (7, c, h, w), dtype, 3 * i + 1)
+                 if res else None)
+            bias = torch.randn(c, generator=torch.Generator(
+                device=cuda).manual_seed(3 * i + 2), device=cuda)
+            want = drn_epilogue_reference(y, bias, r)
+            launches = drn_epilogue.launches
+            assert drn_epilogue(y, bias, r) is y
+            torch.cuda.synchronize()
+            assert drn_epilogue.launches == launches + 1
+            assert torch.equal(y, want), (c, h, w, res, dtype)
+
+
+@pytest.mark.parametrize("case", ["nchw", "residual_nchw", "float16",
+                                  "channels"])
+def test_drn_epilogue_raises_on_what_it_does_not_take(cuda, case):
+    """NCHW-contiguous y or residual, float16, and a C that is no
+    multiple of 16 bytes raise before any launch."""
+    from spalign_tpu_torch.kernels.drn_epilogue import drn_epilogue
+
+    c = 12 if case == "channels" else 64
+    y = _channels_last(cuda, (2, c, 8, 8), torch.bfloat16, 0)
+    r, bias = None, torch.zeros(c, device=cuda)
+    if case == "nchw":
+        y = y.contiguous()
+    elif case == "residual_nchw":
+        r = y.clone().contiguous()
+    elif case == "float16":
+        y = y.to(torch.float16)
+    launches = drn_epilogue.launches
+    with pytest.raises(TypeError if case == "float16" else ValueError):
+        drn_epilogue(y, bias, r)
+    assert drn_epilogue.launches == launches
+
+
+@pytest.mark.parametrize("model_name,epilogues", [("drn_c_26", 25),
+                                                  ("drn_d_105", 104)])
+def test_captured_folded_backbone_equals_the_eager_run(cuda, model_name,
+                                                       epilogues):
+    """The label generator's folded backbone (bf16, 12 images at 224^2)
+    captured by ``utils/graphs.py`` and replayed equals its eager run bit
+    for bit, for the captured images and for others loaded after; one
+    epilogue launch a convolution output, each replay counted; the DRN
+    with its BN stays on the CPU."""
+    from spalign_tpu_torch.kernels.drn_epilogue import drn_epilogue
+    from spalign_tpu_torch.models.drn import FoldedDRN
+    from spalign_tpu_torch.utils.graphs import Captured
+
+    gen = _cell_generator(cuda, model_name)
+    assert isinstance(gen.net, FoldedDRN)
+    assert next(gen.model.parameters()).device.type == "cpu"
+    images = [gen.decode(_wire(cuda, 12, seed)) for seed in (5, 6)]
+    before = drn_epilogue.launches
+    eager = [gen.backbone(x).clone() for x in images]
+    assert drn_epilogue.launches == before + 2 * epilogues
+    cap = Captured([lambda b: {"feats": gen.backbone(b["images"])}],
+                   {"images": images[0]}, (drn_epilogue,))
+    assert cap.launches == [[epilogues]]
+    for x, want in zip(images + images[:1], eager + eager[:1]):
+        cap.load(images=x)
+        cap.replay(0)
+        torch.cuda.synchronize()
+        assert torch.equal(cap.bufs["feats"], want)
+    assert drn_epilogue.launches == before + 6 * epilogues
+
+
+@pytest.mark.parametrize("model_name", ["drn_c_26", "drn_d_105"])
+def test_folded_bf16_features_stay_within_the_bf16_drn_error(cuda,
+                                                             model_name):
+    """The benchmark's weights and scenes (8 of its frames at 224^2):
+    the folded bf16 features' worst relative error against the float32
+    DRN (TF32 off) is at most 1.1 x the bf16 DRN's (with its BN)."""
+    import copy
+    import json
+
+    from perfbench import harness, scenes, weights, weights_drn_d
+    from perfbench.drivers import label as pb_label
+    from spalign_tpu_torch.models.drn import preprocess_imagenet
+
+    name = {"drn_c_26": "drn26-spalign-slic",
+            "drn_d_105": "drnd105-spalign-slic"}[model_name]
+    cfg = json.loads((harness.HERE / "configs" / f"{name}.json").read_text())
+    shapes = (weights.drn_shapes(cfg["model"]) if model_name == "drn_c_26"
+              else weights_drn_d.drn_d_shapes(cfg["model"]))
+    scene_seed, weight_seed = harness.seeds(2017, 2)
+    sd = weights.make(shapes, weight_seed, "cpu", 1.0)
+    frames, _ = scenes.render(scene_seed, 8, (512, 1024), cuda)
+    x = preprocess_imagenet(torch.from_numpy(
+        pb_label.resize_u8(frames, (224, 224), cuda)).to(cuda))
+    model, folded = _folded(cuda, model_name, sd)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = copy.deepcopy(model).to(cuda).features(x)
+            low = copy.deepcopy(model).to(cuda, torch.bfloat16).to(
+                memory_format=torch.channels_last).features(x)
+            got = folded.features(x)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+    def rel(a):
+        return float(((a - ref).flatten(1).norm(dim=1)
+                      / ref.flatten(1).norm(dim=1)).max())
+
+    print(f"{model_name} feat_rel: folded {rel(got):.5f}, "
+          f"bf16 DRN {rel(low):.5f}")
+    assert rel(got) <= 1.1 * rel(low)
 
 
 # ---- the host library's yuv420 pack and real image files on the card ----

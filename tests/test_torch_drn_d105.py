@@ -10,9 +10,11 @@ Tolerance of the features: ||port - reference|| / ||reference|| below
 roundings (nn.BatchNorm2d's eval form against the reference's folded
 scale and shift, the backend's convolution algorithm): 1.5e-6 at 32x32
 over 108 convolutions.  One bf16 rounding is ~4e-3, and the port in bf16
-reads ~1e-2, far above it."""
+reads ~1e-2, far above it.  The label generator's folded backbone is
+held to the same bar."""
 
 import copy
+import dataclasses
 import json
 
 import numpy as np
@@ -174,3 +176,107 @@ def test_flop_table_against_hooks(net, hw):
     assert len(seen) == 108
     assert sum(seen) == 2 * drn_d_105_flops.flops_per_image(
         _config()["model"], hw)
+
+
+@pytest.mark.parametrize("init,folds", [("device", True),
+                                        ("reference", False)])
+def test_backbone_folds_outside_the_parity_mode(init, folds):
+    """The routing predicate: the folded DRN serves the backbone on any
+    device, except in the parity mode (the reference's float32
+    arithmetic, BN unfolded)."""
+    from spalign_tpu_torch.pipeline.label_gen import LabelGeneratorBase
+
+    cfg = pb_label.label_config(_config())
+    cfg = dataclasses.replace(cfg, kmeans=dataclasses.replace(
+        cfg.kmeans, init=init))
+    assert LabelGeneratorBase._folds(cfg) is folds
+
+
+def test_parity_generator_serves_the_drn_with_its_bn():
+    """In the parity mode the backbone is the DRN itself (``gen.net is
+    gen.model``, BN unfolded, float32), no folded net is built, and
+    ``drn.folded_images`` reads 0 beside ``drn.images``."""
+    from spalign_tpu_torch.config import KMeansConfig, LabelGenConfig
+    from spalign_tpu_torch.models.drn import DRN
+    from spalign_tpu_torch.pipeline.label_gen import SpalignLabelGenerator
+    from spalign_tpu_torch.utils import timers
+
+    cfg = LabelGenConfig(batchsize=2, resize_shape=(64, 64),
+                         save_masks=False,
+                         kmeans=KMeansConfig(n_clusters=4, seed=1111,
+                                             init="reference"))
+    gen = SpalignLabelGenerator(cfg, device="cpu")
+    assert gen.net is gen.model and isinstance(gen.model, DRN)
+    assert any(isinstance(m, torch.nn.BatchNorm2d)
+               for m in gen.net.modules())
+    assert next(gen.net.parameters()).dtype == torch.float32
+    timers.reset()
+    feats = gen.features(_images(2, (64, 64)))
+    assert feats.shape[0] == 2 and feats.dtype == torch.float32
+    c = timers.counts()
+    assert c["drn.images"] == 2 and c["drn.folded_images"] == 0
+
+
+def _unit_config(model_dtype):
+    cfg = _config()
+    cfg["label_gen"].update(resize_shape=[64, 64], batchsize=2,
+                            groups_per_dispatch=1, model_dtype=model_dtype)
+    return pb_label.label_config(cfg)
+
+
+@pytest.mark.parametrize("folded", [False, True],
+                         ids=["unfolded", "folded"])
+def test_generator_keeps_its_drn_beside_the_folded_one(net, monkeypatch,
+                                                       folded):
+    """``gen.model`` is the DRN with the given weights and BN, in the
+    config's dtype, after the build and after ``reconfigure`` to another
+    dtype, whether or not the folded net serves the backbone.  Folded
+    (this config's routing) ``gen.net``, the folded DRN-D-105, serves
+    ``features`` within FEAT_REL of the reference, counted under
+    ``drn.folded_images``, and keeps the 108 convolutions of the table;
+    unfolded (forced) ``gen.net`` is the DRN and the counter reads 0."""
+    from spalign_tpu_torch.models.drn import DRN, FoldedDRN
+    from spalign_tpu_torch.pipeline.direct import make_label_generator
+    from spalign_tpu_torch.pipeline.label_gen import LabelGeneratorBase
+    from spalign_tpu_torch.utils import timers
+
+    _, sd = net
+    if not folded:
+        monkeypatch.setattr(LabelGeneratorBase, "_folds",
+                            staticmethod(lambda cfg: False))
+    gen = make_label_generator(_unit_config("float32"), state_dict=sd,
+                               model_name="drn_d_105", seed=7, device="cpu")
+
+    def assert_model(dtype):
+        assert isinstance(gen.model, DRN)
+        got = gen.model.state_dict()
+        assert set(got) == set(sd)
+        for k, v in got.items():
+            want = sd[k] if v.dtype == torch.int64 else sd[k].to(dtype)
+            assert v.dtype == want.dtype and torch.equal(v, want), k
+        if folded:
+            assert isinstance(gen.net, FoldedDRN)
+            assert gen.net.stem.conv.weight.dtype == dtype
+            assert gen.net.stem.shift.dtype == torch.float32
+        else:
+            assert gen.net is gen.model
+
+    assert_model(torch.float32)
+    imgs = _images(2, (64, 64))
+    timers.reset()
+    convs = []
+    hs = [m.register_forward_hook(lambda *a: convs.append(1))
+          for m in gen.net.modules() if isinstance(m, torch.nn.Conv2d)]
+    try:
+        feats = gen.features(imgs)
+    finally:
+        for h in hs:
+            h.remove()
+    assert len(convs) == 108
+    c = timers.counts()
+    assert c["drn.images"] == 2
+    assert c["drn.folded_images"] == (2 if folded else 0)
+    want = ref_drn_d.features(sd, _config()["model"], imgs)
+    assert _rel(feats, want) < FEAT_REL
+    gen.reconfigure(_unit_config("bfloat16"))
+    assert_model(torch.bfloat16)
